@@ -1,0 +1,20 @@
+"""PyTorch + CUDA port of the serving path of :mod:`repro`.
+
+The package mirrors the JAX package's module names (``configs``,
+``core``, ``kernels``, ``models``, ``serving``, ``checkpoint``) so each
+module's counterpart is easy to find, and imports only ``torch``,
+``numpy`` and the standard library: what it needs from the JAX package's
+JAX-free modules is copied here, trimmed to what the port uses.
+
+The slice ported so far is the page-level ``Infer`` path: a Bebop prompt
+page is decoded on the device by a hand-written CUDA kernel
+(:mod:`.kernels.bebop_decode`), the greedy
+:class:`~repro_torch.serving.engine.PagedBatcher` schedules it, and the
+paged decoder LM runs its attention through hand-written CUDA paged
+attention kernels (:mod:`.kernels.paged_attention`).
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no card and no explicit CPU device they raise.
+Each kernel wrapper launches its kernel for CUDA tensors and uses its
+plain PyTorch version only for CPU tensors.
+"""

@@ -1,0 +1,33 @@
+"""Parameter bridge: a numpy params tree -> the port's tensors.
+
+The port keeps the JAX params tree exactly (``embed``, ``final_norm``,
+``layers/{ln1, ln2, attn/{wq, wk, wv, wo, bq, bk, bv}, mlp/{w_gate,
+w_up, w_down}}``, stacked ``[L, ...]``), so the map is the identity on
+names: ``np.asarray`` each leaf of a JAX params tree (or take the arrays
+``checkpoint/format.py``'s ``flatten_tree`` yields, nested back by their
+``/`` paths) and hand the tree here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree: Mapping[str, Any], *, device,
+                      dtype: torch.dtype) -> Dict[str, Any]:
+    """Same names, same shapes; every leaf becomes a ``dtype`` tensor on
+    ``device``.  Leaves may be numpy arrays or anything ``np.asarray``
+    takes (a bfloat16 leaf goes through float32, which is exact)."""
+    out: Dict[str, Any] = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            out[name] = params_from_numpy(leaf, device=device, dtype=dtype)
+            continue
+        arr = np.asarray(leaf)
+        if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+        out[name] = torch.from_numpy(np.array(arr, order="C")).to(
+            device=device, dtype=dtype)
+    return out

@@ -1,0 +1,138 @@
+"""Model configuration dataclasses + the --arch registry.
+
+A copy of the JAX package's ``configs/base.py``, field for field, so a
+config built on either side describes the same model.  One default
+differs: :attr:`ModelConfig.attention_impl`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    num_shared: int = 0          # always-on shared experts (qwen2-moe: 4)
+    d_expert: int = 0            # per-expert FFN width
+    router_aux_coef: float = 0.001
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One architecture's hyperparameters.
+
+    ``attention_impl`` selects how the paged attention runs:
+    ``"kernel"`` (the default here) launches the hand-written CUDA kernel
+    for CUDA tensors and uses its plain PyTorch version for CPU tensors;
+    ``"reference"`` calls the plain version by name on any device.  This
+    departs from the JAX package, whose default is ``"reference"`` and
+    whose models reach their Pallas kernel only when asked: in the port
+    the kernel is the default on the card.
+    """
+
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # layer details
+    mlp_act: str = "swiglu"      # swiglu | geglu
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    logit_softcap: Optional[float] = None
+    # attention behaviour
+    attention_kind: str = "global"      # global | local | none
+    window: Optional[int] = None        # local attention window
+    mrope: bool = False                 # qwen2-vl M-RoPE (3 position axes)
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
+    # MoE
+    moe: Optional[MoEConfig] = None
+    moe_dispatch: str = "grouped"   # grouped (GShard rows) | global (§Perf)
+    # hybrid (recurrentgemma): super-block pattern + tail
+    block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
+    tail_pattern: Tuple[str, ...] = ()
+    lru_width: Optional[int] = None
+    conv_width: int = 4
+    # rwkv6
+    rwkv: bool = False
+    rwkv_head_dim: int = 64
+    time_mix_extra_dim: int = 32
+    decay_extra_dim: int = 64
+    rwkv_impl: str = "sequential"   # sequential | chunked (§Perf)
+    rwkv_chunk: int = 32
+    # encoder-decoder
+    encoder_layers: int = 0
+    frame_ratio: int = 8         # audio frames per text token (stub frontend)
+    # modality frontend stub
+    input_kind: str = "tokens"   # tokens | embeddings | frames
+    # numerics / execution
+    dtype: str = "bfloat16"
+    remat: str = "none"          # none | full
+    attention_impl: str = "kernel"   # kernel | reference
+    loss_chunk: int = 0          # 0 = unchunked vocab loss
+    attention_q_chunk: int = 256
+    attention_chunk_threshold: int = 4096
+    fsdp_per_layer_gather: bool = False
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _REGISTRY:
+        from . import load_all  # late import populates registry
+        load_all()
+    return _REGISTRY[name]
+
+
+def reduced_config(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-family config for CPU smoke tests."""
+    kw = dict(
+        num_layers=2, d_model=64, num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) or 1, head_dim=16,
+        d_ff=128, vocab_size=512, dtype="float32", remat="none",
+        loss_chunk=0,
+    )
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(num_experts=4, top_k=2,
+                              num_shared=min(cfg.moe.num_shared, 1),
+                              d_expert=32)
+    if cfg.block_pattern:
+        kw["block_pattern"] = cfg.block_pattern
+        kw["tail_pattern"] = cfg.tail_pattern
+        kw["num_layers"] = 2 * len(cfg.block_pattern) + len(cfg.tail_pattern)
+        kw["lru_width"] = 64
+        kw["window"] = 8
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
+    if cfg.rwkv:
+        kw["rwkv_head_dim"] = 16
+        kw["time_mix_extra_dim"] = 8
+        kw["decay_extra_dim"] = 8
+    if cfg.mrope:
+        kw["mrope_sections"] = (2, 3, 3)  # sums to head_dim(16)//2
+    if cfg.window is not None and not cfg.block_pattern:
+        kw["window"] = 8
+    return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)

@@ -1,0 +1,107 @@
+"""Device rule + decode planning: Bebop struct -> device column layout.
+
+Copied from the JAX package's ``core/device.py``: the schema's wire
+layout is fixed at compile time, so every column's ``(offset, count,
+dtype)`` is planned once and handed to the decode kernel.  A column is
+device-decodable only if its byte offset is a multiple of its element
+size (the alignment rule the paper's C generator gets by sorting fields).
+
+:func:`torch_device` is the port's device rule for every entry point:
+CUDA unless the caller asks for the CPU, and an error, never a silent
+CPU run, when CUDA is asked for and there is none.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from . import types as T
+
+_WIRE_NAMES = {
+    "uint32": ("uint32", 4), "int32": ("int32", 4), "float32": ("float32", 4),
+    "uint16": ("uint16", 2), "bfloat16": ("bfloat16", 2),
+    "float16": ("float16", 2), "byte": ("uint8", 1), "uint8": ("uint8", 1),
+    "bool": ("uint8", 1), "int8": ("uint8", 1),
+}
+
+
+def torch_device(device) -> torch.device:
+    """Resolve an entry point's ``device`` argument.
+
+    Raises when a CUDA device is asked for and none is available: the
+    port never quietly runs its plain path in place of the card.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnSpec:
+    name: str
+    offset: int
+    count: int
+    wire_dtype: str
+    elem_size: int
+
+    def as_field(self, out_dtype: str) -> Tuple[int, int, str, str]:
+        return (self.offset, self.count, self.wire_dtype, out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceLayout:
+    struct_name: str
+    stride: int
+    columns: Tuple[ColumnSpec, ...]
+
+
+def _field_column(name: str, ft: T.Type, offset: int) -> Optional[ColumnSpec]:
+    if isinstance(ft, T.FixedArray) and isinstance(ft.elem, T.Prim):
+        wn = _WIRE_NAMES.get(ft.elem.name)
+        if wn is None:
+            return None
+        return ColumnSpec(name, offset, ft.count, wn[0], wn[1])
+    if isinstance(ft, T.Prim):
+        if ft.name == "uuid" or ft.name in ("int128", "uint128"):
+            return ColumnSpec(name, offset, 16, "uint8", 1)
+        wn = _WIRE_NAMES.get(ft.name)
+        if wn is None:
+            return None
+        return ColumnSpec(name, offset, 1, wn[0], wn[1])
+    return None
+
+
+def plan_device_layout(s: T.Struct) -> DeviceLayout:
+    """Static column plan for a fixed-layout struct."""
+    dt = T.static_dtype(s)
+    if dt is None:
+        raise T.SchemaError(
+            f"struct {s.name} is not fixed-layout; device decode requires "
+            f"static strides (use fixed arrays / shape-specialized pages)")
+    cols: List[ColumnSpec] = []
+    offset = 0
+    for f in s.fields:
+        size = f.type.static_size()
+        col = _field_column(f.name, f.type, offset)
+        if col is not None:
+            if col.offset % col.elem_size != 0:
+                raise T.SchemaError(
+                    f"{s.name}.{f.name}: offset {col.offset} not aligned to "
+                    f"element size {col.elem_size}; reorder fields")
+            cols.append(col)
+        offset += size
+    return DeviceLayout(s.name, dt.itemsize, tuple(cols))
+
+
+def default_out_dtype(wire_dtype: str) -> str:
+    """Model-facing dtype a wire column decodes to unless overridden."""
+    return {"uint32": "int32", "int32": "int32", "float32": "float32",
+            "uint16": "uint16", "bfloat16": "float32", "float16": "float32",
+            "uint8": "uint8"}[wire_dtype]

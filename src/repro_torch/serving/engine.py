@@ -1,0 +1,1078 @@
+"""Serving engine + the greedy paged scheduler, on PyTorch.
+
+A port of the JAX package's ``serving/engine.py``, paged path only:
+:class:`ServeConfig` (field for field), :class:`Engine` (model, params
+and the paged step functions) and :class:`PagedBatcher`, whose scheduling
+— fused prefill/decode steps under the ``max_step_tokens`` budget, the
+prefix cache with copy-on-write, n-gram speculative decode, swap
+preemption with the SLO controller, shedding and stats — is the JAX
+batcher's, line for line, for greedy requests.
+
+Not in this slice, each with a clear error instead of a crash: sampled
+requests (temperature > 0) and ``n > 1`` candidates raise
+``NotImplementedError`` at submit, and a request too large for the paged
+pool, which the JAX batcher hands to its dense engine, is shed with a
+:class:`ShedError` that names the missing dense engine.
+"""
+from __future__ import annotations
+
+import collections
+import concurrent.futures as _cf
+import dataclasses
+import logging
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.device import torch_device
+from ..models import get_model
+from .kv_cache import CacheOOM, PagedKVCache, block_keys
+from .sampling import GenerationParams, SamplingParams
+from .spec import ngram_propose
+
+_log = logging.getLogger(__name__)
+
+_DENSE_TODO = ("the dense engine is not ported yet (ROADMAP.md, Queue 1: "
+               "dense engine)")
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    cache_len: int = 1024
+    max_new_tokens: int = 64
+    # default sampling for requests that carry none: temperature 0 =
+    # greedy argmax (the only mode this port serves so far)
+    temperature: float = 0.0    # 0 = greedy
+    top_k: int = 0              # 0 = no top-k filter
+    top_p: float = 1.0          # 1.0 = no nucleus (top-p) filter
+    seed: int = 0               # base PRNG seed for sampled requests
+    # paged KV cache; paged=False asks for the dense ContinuousBatcher,
+    # which is not ported yet
+    paged: bool = True
+    block_size: int = 16        # tokens per KV block (64B-alignment rounds up)
+    prefill_chunk: int = 32     # prompt tokens prefilled per chunked step
+    num_blocks: int = 0         # 0 = auto: max_batch * blocks_per_seq + null
+    # fused prefill/decode scheduling; False restores the blocking
+    # chunked-prefill loop
+    fused_prefill: bool = True
+    # per-step budget of NEW tokens a fused step may process (decode rows
+    # count 1 each; prefilling rows share the remainder, clamped to
+    # prefill_chunk).  0 = no budget.
+    max_step_tokens: int = 0
+    # automatic prefix caching: matched blocks are shared (refcounted,
+    # copy-on-write on conflict) and their prefill is skipped
+    prefix_cache: bool = True
+    # cap on cached-but-unreferenced prefix blocks kept resident (0 =
+    # bounded only by the pool)
+    prefix_lru_blocks: int = 0
+    # self-speculative decoding: an n-gram drafter over each row's own
+    # history proposes up to spec_len tokens and ONE verify step scores
+    # them; emitted tokens stay bit-identical to plain greedy decode
+    spec_decode: bool = True
+    spec_len: int = 4           # max drafted tokens per request per step
+    spec_ngram: int = 2         # shortest suffix n-gram worth drafting from
+    # SLO-aware scheduling: swap=True pages lowest-priority victims' KV
+    # blocks to host under pool pressure instead of shedding
+    swap: bool = True
+    default_priority: int = 0   # priority class when submit() passes none
+    ttft_slo_ms: float = 0.0    # default time-to-first-token target (0=off)
+    tpot_slo_ms: float = 0.0    # default inter-token latency target (0=off)
+    # scheduler steps between SLO-controller updates of max_step_tokens
+    slo_adjust_every: int = 16
+
+
+class Engine:
+    """One model on one device: parameters plus the paged step functions.
+
+    ``device`` defaults to ``"cuda"`` and raises when there is no card;
+    pass ``device="cpu"`` to run the plain PyTorch path.  ``params``, when
+    given, must already live on ``device`` (see
+    :func:`repro_torch.checkpoint.bridge.params_from_numpy`); otherwise
+    they are drawn from a ``torch.Generator`` seeded with ``seed``.
+    """
+
+    def __init__(self, cfg: ModelConfig, serve_cfg: ServeConfig,
+                 params: Optional[Any] = None, *, seed: int = 0,
+                 device="cuda"):
+        self.cfg = cfg
+        self.serve = serve_cfg
+        self.device = torch_device(device)
+        self.model = get_model(cfg)
+        if params is None:
+            params = self.model.init(seed, self.device)
+        self.params = params
+
+    @property
+    def supports_paged(self) -> bool:
+        return bool(getattr(self.model, "supports_paged", False))
+
+    def paged_step_fn(self):
+        """The paged step: logits at each row's last valid token."""
+        return self.model.paged_step
+
+    def paged_verify_fn(self):
+        """The speculative verify step: logits at every position."""
+        return self.model.paged_step_verify
+
+
+class ShedError(RuntimeError):
+    """Request dropped by the scheduler (queue overflow or expired deadline)."""
+
+
+def _config_sampling(sc: ServeConfig) -> SamplingParams:
+    """The ServeConfig-default sampling for requests that pass none."""
+    return SamplingParams(temperature=sc.temperature, top_k=sc.top_k,
+                          top_p=sc.top_p, seed=sc.seed)
+
+
+def _logits_to_host(out: torch.Tensor) -> np.ndarray:
+    """Device logits -> host float32 array.  bf16 logits travel as their
+    raw 16-bit patterns (half the bytes of a float32 copy) and widen on
+    the host, exactly: ``argmax`` sees the same values either way."""
+    if out.dtype == torch.bfloat16:
+        bits = out.contiguous().view(torch.int16).cpu().numpy()
+        return (bits.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return out.float().cpu().numpy()
+
+
+@dataclasses.dataclass(eq=False)   # identity semantics: field-wise eq would
+class _PagedReq:                   # compare [B, T] arrays of mixed shapes
+    """One in-flight request: rows share a prompt and advance in lockstep."""
+
+    tokens: np.ndarray                  # [B, T] prompt
+    max_new_tokens: int
+    stop_token: Optional[int]
+    deadline: Optional[Any]
+    future: _cf.Future
+    rid: int
+    on_token: Optional[Callable[[int, np.ndarray], None]] = None
+    enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
+    # SLO-aware scheduling: priority class (higher preempts strictly
+    # lower) and per-request latency targets in seconds (0 = no target)
+    priority: int = 0
+    ttft_slo_s: float = 0.0
+    tpot_slo_s: float = 0.0
+    first_emit_at: Optional[float] = None   # observed TTFT/TPOT inputs
+    last_emit_at: Optional[float] = None
+    cancelled: bool = False     # caller gone (connection died): stop paying
+    # runtime state (set at admission)
+    tables: Optional[np.ndarray] = None     # [B, M] int32 block tables
+    slots: List[int] = dataclasses.field(default_factory=list)
+    next_tok: Optional[np.ndarray] = None   # [B] pending (unemitted) tokens
+    out: List[np.ndarray] = dataclasses.field(default_factory=list)
+    pos_next: int = 0                       # absolute position of next write
+    # [B, T + max_new + 1] committed-token history for the drafter
+    hist: Optional[np.ndarray] = None
+
+    @property
+    def rows(self) -> int:
+        return self.tokens.shape[0]
+
+    @property
+    def seq_len(self) -> int:
+        return self.tokens.shape[1]
+
+    @property
+    def prefilling(self) -> bool:
+        """Prompt tokens remain to be written into the paged cache."""
+        return self.pos_next < self.seq_len
+
+    def expired(self) -> bool:
+        return self.cancelled or (
+            self.deadline is not None and self.deadline.expired())
+
+    def emit(self, tok: np.ndarray) -> None:
+        now = time.monotonic()
+        if self.first_emit_at is None:
+            self.first_emit_at = now
+        self.last_emit_at = now
+        self.out.append(tok)
+        if self.hist is not None:
+            self.hist[:, self.seq_len + len(self.out) - 1] = tok
+        if self.on_token is not None:
+            try:
+                self.on_token(len(self.out) - 1, tok)
+            except Exception:  # noqa: BLE001 - a hook must never be able
+                # to desync scheduler state
+                _log.exception("on_token callback raised; ignoring")
+
+
+class PagedBatcher:
+    """Mixed-length continuous batching over the paged KV cache (greedy).
+
+    Every admitted request owns fixed-stride blocks in one shared pool,
+    so one :meth:`~repro_torch.models.transformer.DecoderLM.paged_step`
+    advances all active rows whatever their lengths, and new requests slot
+    in between steps.  Admission only installs a prefill-in-progress row;
+    the scheduler runs *fused* steps that advance every decode row by 1
+    token AND every prefilling row by up to ``prefill_chunk`` prompt
+    tokens (per-row ``last_idx``), budgeted by ``max_step_tokens``.  With
+    the prefix cache on, prompts share already-resident full blocks and a
+    write into a shared block copy-on-writes first.  When every active row
+    decodes, an n-gram drafter proposes continuations and one verify step
+    of width ``spec_len + 1`` scores them.  Under pool pressure (``swap``
+    on) lower-priority requests are paged out to host and resume
+    token-identically later; per-request TTFT/TPOT targets steer the live
+    ``max_step_tokens``.  Every stats key is pre-initialized.
+
+    Scheduling invariants (the JAX batcher's): the emitted tokens depend
+    only on the prompt and the model; priority preempts strictly lower;
+    every future resolves; no retirement path leaks a block.
+    """
+
+    def __init__(self, engine: Engine, *, max_batch: Optional[int] = None,
+                 max_queue: int = 64):
+        if not engine.supports_paged:
+            raise ValueError(
+                f"{engine.cfg.name}: model family has no paged-KV support")
+        self.engine = engine
+        cfg, sc = engine.cfg, engine.serve
+        self.max_batch = max_batch or sc.max_batch
+        self.max_queue = max_queue
+        self.prefill_chunk = max(1, sc.prefill_chunk)
+        self.fused = bool(sc.fused_prefill)
+        self.max_step_tokens = max(0, int(sc.max_step_tokens))
+        self.prefix_enabled = bool(sc.prefix_cache)
+        self.spec_len = max(0, int(sc.spec_len))
+        self.spec = bool(sc.spec_decode) and self.spec_len > 0
+        self.spec_ngram = max(1, int(sc.spec_ngram))
+        self.swap = bool(sc.swap)
+        self.default_priority = int(sc.default_priority)
+        self.ttft_slo_s = max(0.0, float(sc.ttft_slo_ms)) / 1e3
+        self.tpot_slo_s = max(0.0, float(sc.tpot_slo_ms)) / 1e3
+        self.slo_adjust_every = max(1, int(sc.slo_adjust_every))
+        self.cache = PagedKVCache(
+            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, cache_len=sc.cache_len,
+            block_size=sc.block_size, num_blocks=sc.num_blocks,
+            max_concurrent=self.max_batch, dtype=cfg.dtype,
+            prefix_cache=self.prefix_enabled,
+            prefix_lru_blocks=sc.prefix_lru_blocks)
+        self.cache.pool = engine.model.init_paged_pool(
+            self.cache.layout.num_blocks, self.cache.block_size,
+            engine.device)
+        self._step_fn = engine.paged_step_fn()
+        self._verify_fn = engine.paged_verify_fn() if self.spec else None
+        self._queue: collections.deque = collections.deque()
+        self._cond = threading.Condition()
+        self._closed = False  # guarded by _cond
+        self._active: List[_PagedReq] = []
+        self._slots: List[Optional[Tuple[_PagedReq, int]]] = \
+            [None] * self.max_batch
+        self._next_rid = 0  # guarded by _cond
+        self._preempted: List[_PagedReq] = []
+        self._ttft_obs: collections.deque = collections.deque(maxlen=128)
+        self._tpot_obs: collections.deque = collections.deque(maxlen=128)
+        self._steps_since_adjust = 0
+        # ceiling for the SLO controller: one full chunk for every row
+        self._step_budget_cap = max(self.max_batch * self.prefill_chunk,
+                                    self.max_step_tokens)
+        # the JAX batcher's full key set, so snapshots of the two packages
+        # line up; forks, spec_resamples, sampled_requests and
+        # dense_fallbacks stay 0 until sampling and the dense engine land
+        self.stats = {"requests": 0, "rows": 0, "shed": 0, "decode_steps": 0,
+                      "batched_rows": 0, "prefill_chunks": 0,
+                      "mixed_steps": 0, "admitted_in_flight": 0,
+                      "dense_fallbacks": 0, "worker_errors": 0,
+                      "prefix_hits": 0, "prefix_tokens_reused": 0,
+                      "cow_copies": 0, "spec_steps": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "preemptions": 0, "swapped_blocks": 0, "swap_ins": 0,
+                      "slo_violations": 0, "slo_adjustments": 0,
+                      "cancelled": 0, "forks": 0, "spec_resamples": 0,
+                      "sampled_requests": 0}
+        self._worker_error_logged = False
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="serve-paged-batcher")
+        self._worker.start()
+
+    # -- admission ----------------------------------------------------------
+    def submit(self, tokens: np.ndarray, *,
+               max_new_tokens: Optional[int] = None,
+               stop_token: Optional[int] = None,
+               deadline=None, on_token=None,
+               priority: Optional[int] = None,
+               ttft_slo_ms: Optional[float] = None,
+               tpot_slo_ms: Optional[float] = None,
+               params: Optional[GenerationParams] = None,
+               sampling: Optional[SamplingParams] = None,
+               n: int = 1) -> _cf.Future:
+        """Queue a [B, T] (or [T]) prompt; resolves to [B, new] int32.
+
+        ``on_token(index, tok)`` is invoked from the worker thread as each
+        token is emitted.  ``priority`` (higher wins) and the
+        ``ttft_slo_ms``/``tpot_slo_ms`` targets drive the SLO-aware tier;
+        ``params`` supplies every per-request field at once.  A sampled
+        request (temperature > 0) or ``n > 1`` raises
+        ``NotImplementedError`` here, in the caller's thread.
+        """
+        if params is not None:
+            params.validate()
+            max_new_tokens = params.max_new_tokens
+            stop_token = params.stop_token
+            priority = params.priority
+            ttft_slo_ms = params.ttft_slo_ms
+            tpot_slo_ms = params.tpot_slo_ms
+            sampling = params.sampling(self.engine.serve)
+            n = params.n
+        if int(n) > 1:
+            raise NotImplementedError(
+                f"n={n} parallel candidates are not ported yet: they fork "
+                f"sampled rows (ROADMAP.md, Queue 1: sampling)")
+        if sampling is None:   # resolving the defaults checks them
+            _config_sampling(self.engine.serve)
+        tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
+        maxn = self.engine.serve.max_new_tokens if max_new_tokens is None \
+            else max_new_tokens  # explicit 0 = prefill-only
+        pr = self.default_priority if priority is None else int(priority)
+        ttft = self.ttft_slo_s if ttft_slo_ms is None \
+            else max(0.0, float(ttft_slo_ms)) / 1e3
+        tpot = self.tpot_slo_s if tpot_slo_ms is None \
+            else max(0.0, float(tpot_slo_ms)) / 1e3
+        with self._cond:
+            self._next_rid += 1
+            p = _PagedReq(tokens, maxn, stop_token, deadline, _cf.Future(),
+                          self._next_rid, on_token, priority=pr,
+                          ttft_slo_s=ttft, tpot_slo_s=tpot)
+            if p.seq_len == 0:
+                # an installed 0-token request has no prefill to run and no
+                # next_tok to feed: it would poison the SHARED step
+                self.stats["shed"] += 1
+                p.future.set_exception(ShedError("empty prompt"))
+                return p.future
+            if self._closed:
+                self.stats["shed"] += 1
+                p.future.set_exception(ShedError("batcher closed"))
+                return p.future
+            if p.expired():
+                self.stats["shed"] += 1
+                p.future.set_exception(
+                    ShedError("deadline expired before admission"))
+                return p.future
+            if len(self._queue) >= self.max_queue:
+                self.stats["shed"] += 1
+                p.future.set_exception(ShedError("admission queue full"))
+                return p.future
+            self._queue.append(p)
+            self.stats["requests"] += 1
+            self.stats["rows"] += p.rows
+            self._cond.notify()
+        return p.future
+
+    def generate(self, tokens: np.ndarray, **kw) -> np.ndarray:
+        """Blocking convenience wrapper around :meth:`submit`."""
+        return self.submit(tokens, **kw).result()
+
+    def cancel(self, fut: _cf.Future) -> bool:
+        """Mark the request owning ``fut`` cancelled: the next sweep
+        reclaims whatever it holds through the expired-deadline paths."""
+        with self._cond:
+            for p in (*self._queue, *self._active, *self._preempted):
+                if p.future is fut:
+                    p.cancelled = True
+                    self.stats["cancelled"] += 1
+                    self._cond.notify_all()
+                    return True
+        return False
+
+    # -- worker -------------------------------------------------------------
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._queue and not self._active \
+                        and not self._preempted and not self._closed:
+                    self._cond.wait()
+                if self._closed and not self._queue and not self._active:
+                    for req in list(self._preempted):
+                        self._retire(req, exc=ShedError("batcher closed"))
+                    return
+            try:
+                self._admit()
+                if self._active:
+                    self._step()
+            except Exception:  # noqa: BLE001 - the worker must survive
+                # per-request failure paths resolve futures themselves;
+                # anything escaping here is counted and the first logged
+                self.stats["worker_errors"] += 1
+                if not self._worker_error_logged:
+                    self._worker_error_logged = True
+                    _log.exception(
+                        "PagedBatcher worker step raised; continuing "
+                        "(further escapes counted in "
+                        "stats['worker_errors'])")
+                continue
+
+    def _take_admittable(self) -> Optional[_PagedReq]:
+        """The next request to install, FIFO with skip-ahead: a queued
+        request that fits the free slots and blocks now is taken even if
+        an earlier, larger one is still waiting."""
+        with self._cond:
+            if not self._queue:
+                return None
+            free_slots = self.max_batch - sum(
+                1 for s in self._slots if s is not None)
+            free_budget = self.cache.num_free_blocks + self.cache.reclaimable
+            for p in list(self._queue):
+                if p.expired():
+                    self._queue.remove(p)
+                    self.stats["shed"] += 1
+                    p.future.set_exception(
+                        ShedError("deadline expired in queue"))
+                    continue
+                if p.rows > self.max_batch \
+                        or p.seq_len + max(p.max_new_tokens, 0) \
+                        > self.cache.layout.tokens:
+                    # the JAX batcher serves this on its dense engine
+                    self._queue.remove(p)
+                    self.stats["shed"] += 1
+                    p.future.set_exception(ShedError(
+                        f"request ({p.rows} rows, {p.seq_len} + "
+                        f"{p.max_new_tokens} tokens) exceeds the paged "
+                        f"budget and {_DENSE_TODO}"))
+                    continue
+                need = self._blocks_need(p)
+                if need > self.cache.allocator.capacity:
+                    self._queue.remove(p)
+                    self.stats["shed"] += 1
+                    p.future.set_exception(ShedError(
+                        f"request needs {need} KV blocks, pool capacity "
+                        f"is {self.cache.allocator.capacity}"))
+                    continue
+                if p.rows <= free_slots and need <= free_budget:
+                    self._queue.remove(p)
+                    return p
+            return None
+
+    def _blocks_need(self, p: _PagedReq) -> int:
+        """Worst-case device blocks ``p`` needs: every row pays its full
+        prompt + generation footprint."""
+        return self.cache.blocks_needed(
+            p.seq_len + max(p.max_new_tokens, 0)) * p.rows
+
+    def _admit(self) -> None:
+        if self.swap:
+            self._sweep_preempted()
+        while True:
+            req = self._take_admittable()
+            if req is None and self.swap:
+                req = self._admit_by_preemption()
+            if req is None:
+                return
+            if self._active:
+                self.stats["admitted_in_flight"] += 1
+            try:
+                if self.fused:
+                    self._install(req)
+                else:
+                    self._prefill_blocking(req)
+            except Exception as e:  # noqa: BLE001 - fail THIS request only
+                self._retire(req, exc=e)
+
+    # -- preemption / swap tier ---------------------------------------------
+    def _free_slots(self) -> int:
+        return self.max_batch - sum(1 for s in self._slots if s is not None)
+
+    def _free_budget(self) -> int:
+        """Blocks an allocation could get right now (free + evictable)."""
+        return self.cache.num_free_blocks + self.cache.reclaimable
+
+    def _blocks_held(self, req: _PagedReq) -> int:
+        """Block references ``req`` holds — the optimistic swap-out gain."""
+        return sum(len(self.cache.allocator.blocks_of((req.rid, r)))
+                   for r in range(req.rows))
+
+    def _sweep_preempted(self) -> None:
+        """Shed expired paged-out requests; resume the rest that fit now,
+        highest priority first (FIFO among equals)."""
+        for req in list(self._preempted):
+            if req.expired():
+                self._retire(req, exc=ShedError(
+                    "deadline expired while swapped out"))
+        for req in sorted(self._preempted,
+                          key=lambda r: (-r.priority, r.enqueued_at)):
+            self._try_resume(req)
+
+    def _try_resume(self, req: _PagedReq) -> bool:
+        """Swap a preempted request back in if slots and blocks allow;
+        all-or-nothing across rows."""
+        if req.rows > self._free_slots():
+            return False
+        need = sum(self.cache.swapped_blocks((req.rid, r))
+                   for r in range(req.rows))
+        if need > self._free_budget():
+            return False
+        tabs: List[np.ndarray] = []
+        try:
+            for r in range(req.rows):
+                tabs.append(self.cache.swap_in((req.rid, r)))
+        except CacheOOM:
+            for r in range(len(tabs)):
+                self.cache.swap_out((req.rid, r))
+            return False
+        req.tables = np.stack(tabs)
+        self._take_slots(req)
+        self._preempted.remove(req)
+        self._active.append(req)
+        self.stats["swap_ins"] += 1
+        return True
+
+    def _take_slots(self, req: _PagedReq) -> None:
+        for i in range(self.max_batch):
+            if len(req.slots) == req.rows:
+                break
+            if self._slots[i] is None:
+                self._slots[i] = (req, len(req.slots))
+                req.slots.append(i)
+
+    def _preempt(self, req: _PagedReq) -> None:
+        """Page an active request's KV out to host and park it."""
+        n = 0
+        for r in range(req.rows):
+            n += self.cache.swap_out((req.rid, r))
+        for s in req.slots:
+            self._slots[s] = None
+        req.slots = []
+        req.tables = None
+        self._active.remove(req)
+        self._preempted.append(req)
+        self.stats["preemptions"] += 1
+        self.stats["swapped_blocks"] += n
+
+    def _preempt_candidate(self) -> Optional[Tuple[_PagedReq, int]]:
+        """Highest-priority queued request the paged path could serve
+        (FIFO among equals); returns (request, blocks needed)."""
+        best: Optional[Tuple[_PagedReq, int]] = None
+        with self._cond:
+            for p in self._queue:
+                if p.expired() or p.rows > self.max_batch:
+                    continue
+                try:
+                    need = self._blocks_need(p)
+                except ValueError:
+                    continue   # oversized: _take_admittable sheds it
+                if need > self.cache.allocator.capacity:
+                    continue   # unsatisfiable; _take_admittable sheds it
+                if best is None or p.priority > best[0].priority:
+                    best = (p, need)
+        return best
+
+    def _admit_by_preemption(self) -> Optional[_PagedReq]:
+        """Make room for the best queued request by paging victims out:
+        strictly-lower-priority actives, lowest priority first and most
+        blocks first, always whole requests."""
+        cand = self._preempt_candidate()
+        if cand is None:
+            return None
+        p, need = cand
+        lower = sorted((a for a in self._active if a.priority < p.priority),
+                       key=lambda a: (a.priority, -self._blocks_held(a)))
+        if not lower:
+            return None
+        if need > self._free_budget() + sum(map(self._blocks_held, lower)) \
+                or p.rows > self._free_slots() \
+                + sum(len(v.slots) for v in lower):
+            return None   # even paging every lower victim out can't cover
+        it = iter(lower)
+        while self._free_budget() < need or self._free_slots() < p.rows:
+            v = next(it, None)
+            if v is None:
+                # prefix sharing made the optimistic bound wrong; victims
+                # already paged out resume on a later sweep
+                return None
+            self._preempt(v)
+        with self._cond:
+            if p not in self._queue:
+                return None   # shed behind our back (deadline race)
+            self._queue.remove(p)
+        return p
+
+    def _cow_or_relieve(self, req: _PagedReq, adv: int) -> bool:
+        """:meth:`_cow_writes` with pool-pressure relief: on CacheOOM page
+        out the lowest-priority strictly-lower victim and retry; with none,
+        self-preempt unless ``req`` is the only active request.  Returns
+        False when ``req`` left the batch."""
+        while True:
+            try:
+                self._cow_writes(req, adv)
+                return True
+            except CacheOOM as e:
+                if not self.swap:
+                    self._retire(req, exc=e)
+                    return False
+                lower = sorted(
+                    (a for a in self._active
+                     if a is not req and a.priority < req.priority),
+                    key=lambda a: (a.priority, -self._blocks_held(a)))
+                if lower:
+                    self._preempt(lower[0])
+                    continue
+                if len(self._active) > 1:
+                    self._preempt(req)
+                    return False
+                self._retire(req, exc=e)
+                return False
+
+    # -- admission install (fused path: no device work) ---------------------
+    def _install(self, req: _PagedReq) -> None:
+        """Give the request blocks + batch slots; with the prefix cache on,
+        matched prompt blocks are shared and ``pos_next`` starts at the
+        cache-hit boundary."""
+        rows, t = req.rows, req.seq_len
+        total = t + req.max_new_tokens
+        limit = None
+        row_keys: List[Optional[List[bytes]]] = [None] * rows
+        if self.prefix_enabled and rows > 1:
+            # lockstep rows share one pos_next: cap every row at the
+            # weakest row's match so no row re-writes shared history
+            row_keys = [block_keys(req.tokens[r], self.cache.block_size)
+                        for r in range(rows)]
+            limit = min(len(self.cache.prefix.lookup(k)) for k in row_keys)
+        tabs, matched = [], []
+        for r in range(rows):
+            if self.prefix_enabled:
+                row_tab, m_tok, _ = self.cache.allocate_prefix(
+                    (req.rid, r), total, req.tokens[r], limit=limit,
+                    keys=row_keys[r])
+            else:
+                row_tab, m_tok = self.cache.allocate((req.rid, r), total), 0
+            tabs.append(row_tab)
+            matched.append(m_tok)
+        req.tables = np.stack(tabs)
+        req.pos_next = min(matched)
+        if self.spec:
+            req.hist = np.zeros((rows, t + max(req.max_new_tokens, 0) + 1),
+                                np.int32)
+            req.hist[:, :t] = req.tokens
+        if req.pos_next:
+            self.stats["prefix_hits"] += rows
+            self.stats["prefix_tokens_reused"] += req.pos_next * rows
+        self._take_slots(req)
+        self._active.append(req)
+
+    def _cow_writes(self, req: _PagedReq, adv: int) -> None:
+        """Copy-on-write any SHARED block the coming write range
+        ``[pos_next, pos_next + adv)`` touches."""
+        if adv <= 0 or req.tables is None or not self.prefix_enabled:
+            return
+        for r in range(req.rows):
+            for idx, src, dst in self.cache.ensure_private_range(
+                    (req.rid, r), req.pos_next, adv):
+                self.cache.copy_block(src, dst)
+                req.tables[r, idx] = dst
+                self.stats["cow_copies"] += 1
+
+    def _register_prefix(self, req: _PagedReq) -> None:
+        """Index the request's fully-written full prompt blocks."""
+        if self.prefix_enabled:
+            for r in range(req.rows):
+                self.cache.register_progress((req.rid, r), req.tokens[r],
+                                             req.pos_next)
+
+    # -- blocking chunked prefill (fused_prefill=False) ---------------------
+    def _prefill_blocking(self, req: _PagedReq) -> None:
+        """Same install as the fused path, then run every prompt chunk to
+        completion before returning."""
+        self._install(req)
+        rows, t = req.rows, req.seq_len
+        c = self.prefill_chunk
+        logits = None
+        while req.pos_next < t:
+            if req.pos_next and req.expired():
+                self._retire(req)
+                return
+            adv = min(c, t - req.pos_next)
+            self._cow_writes(req, adv)   # may rewrite req.tables entries
+            toks = np.zeros((rows, c), np.int32)
+            toks[:, :adv] = req.tokens[:, req.pos_next:req.pos_next + adv]
+            pos = np.broadcast_to(
+                req.pos_next + np.minimum(np.arange(c, dtype=np.int32),
+                                          adv - 1), (rows, c))
+            last = np.full((rows,), adv - 1, np.int32)
+            logits = self._run_step(self._step_fn, toks, req.tables, pos,
+                                    last)
+            self.stats["prefill_chunks"] += 1
+            req.pos_next += adv
+            self._register_prefix(req)
+        self._finish_prefill(req, logits)
+
+    def _finish_prefill(self, req: _PagedReq, logits: np.ndarray) -> None:
+        """Prompt fully written: pick the first token (greedy argmax),
+        retire if the request is already done."""
+        if req.max_new_tokens <= 0 or req.expired():
+            self._retire(req)
+            return
+        req.next_tok = logits.argmax(-1).astype(np.int32)
+
+    # -- scheduling ---------------------------------------------------------
+    def _table_width(self, max_ctx: int) -> int:
+        """Block-table columns needed for ``max_ctx`` tokens, rounded up to
+        a power of two, capped at the layout (the tables the JAX steps see,
+        so both packages pass the kernels the same shapes)."""
+        need = max(1, -(-max_ctx // self.cache.block_size))
+        w = 1
+        while w < need:
+            w <<= 1
+        return min(w, self.cache.blocks_per_seq)
+
+    def _run_step(self, fn, toks, tables, pos, last) -> np.ndarray:
+        """Move one step's host arrays to the device, run ``fn`` (the pool
+        is updated in place) and bring the logits back to the host."""
+        dev = self.engine.device
+        t, tb, ps, ls = (torch.from_numpy(np.array(a, order="C")).to(dev)
+                         for a in (toks, tables, pos, last))
+        out, self.cache.pool = fn(self.engine.params, t, self.cache.pool,
+                                  tb, ps, ls)
+        return _logits_to_host(out)
+
+    def _call_step(self, fn, toks, tables, pos, last) -> np.ndarray:
+        """:meth:`_run_step` for the shared batch: a step that raises fails
+        EVERY in-flight request (their blocks return to the pool) and
+        re-raises so the worker loop's error accounting sees it."""
+        try:
+            return self._run_step(fn, toks, tables, pos, last)
+        except Exception as e:  # noqa: BLE001 - fail every member, survive
+            for req in list(self._active):
+                self._retire(req, exc=e)
+            raise
+
+    def _step(self) -> None:
+        for req in list(self._active):   # evict expired before device work
+            if req.expired():
+                self._retire(req)
+        self._steps_since_adjust += 1
+        if self._steps_since_adjust >= self.slo_adjust_every:
+            self._steps_since_adjust = 0
+            self._slo_adjust()
+        if not self._active:
+            return
+        if any(req.prefilling for req in self._active):
+            self._mixed_step()
+        elif self.spec:
+            self._spec_step()
+        else:
+            self._decode_step()
+
+    # -- fused mixed prefill/decode step ------------------------------------
+    def _mixed_step(self) -> None:
+        """ONE step: every decode row advances 1 token, every prefilling
+        row up to ``prefill_chunk`` prompt tokens; all rows share the chunk
+        width C and per-row ``last_idx`` says how many are real."""
+        c = self.prefill_chunk
+        b = self.max_batch
+        prefilling = [r for r in self._active if r.prefilling]
+        decoding = [r for r in self._active if not r.prefilling]
+        n_decode = sum(r.rows for r in decoding)
+        n_pf_rows = sum(r.rows for r in prefilling)
+        if self.max_step_tokens > 0:
+            cap = max(1, (self.max_step_tokens - n_decode)
+                      // max(n_pf_rows, 1))
+            cap = min(cap, c)
+        else:
+            cap = c
+        advances = {req.rid: min(cap, req.seq_len - req.pos_next)
+                    for req in prefilling}
+        for req in list(prefilling):
+            if not self._cow_or_relieve(req, advances[req.rid]):
+                prefilling.remove(req)
+        for req in list(decoding):
+            if not self._cow_or_relieve(req, 1):
+                decoding.remove(req)
+        # relief may have paged out victims from either list
+        prefilling = [r for r in prefilling if r in self._active]
+        decoding = [r for r in decoding if r in self._active]
+        if not prefilling and not decoding:
+            return
+        n_decode = sum(r.rows for r in decoding)
+        max_ctx = max([req.pos_next + advances[req.rid]
+                       for req in prefilling]
+                      + [req.pos_next + 1 for req in decoding])
+        m_used = self._table_width(max_ctx)
+        toks = np.zeros((b, c), np.int32)
+        tables = np.zeros((b, m_used), np.int32)  # null block for idle rows
+        pos = np.zeros((b, c), np.int32)
+        last = np.zeros((b,), np.int32)
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            req, r = slot
+            tables[i] = req.tables[r][:m_used]
+            if req.prefilling:
+                adv = advances[req.rid]
+                toks[i, :adv] = req.tokens[r, req.pos_next:req.pos_next + adv]
+                # padding repeats the last valid position: keeps the
+                # kernel's per-row context tight
+                pos[i] = req.pos_next + np.minimum(
+                    np.arange(c, dtype=np.int32), adv - 1)
+                last[i] = adv - 1
+            else:
+                toks[i, 0] = req.next_tok[r]
+                pos[i] = req.pos_next     # pads masked via last_idx == 0
+        logits = self._call_step(self._step_fn, toks, tables, pos, last)
+        self.stats["mixed_steps"] += 1
+        self.stats["prefill_chunks"] += len(prefilling)
+        if decoding:
+            self.stats["decode_steps"] += 1
+            self.stats["batched_rows"] += n_decode
+        for req in list(decoding):
+            self._advance_decode(req, logits)
+        for req in list(prefilling):
+            req.pos_next += advances[req.rid]
+            self._register_prefix(req)
+            if not req.prefilling:
+                self._finish_prefill(req, logits[req.slots])
+
+    # -- speculative decode (draft-then-verify) -----------------------------
+    def _draft(self, req: _PagedReq) -> Optional[np.ndarray]:
+        """Per-row n-gram proposals ([rows, k] int32, lockstep rows clamped
+        to their shortest proposal), or None.  The draft budget never
+        exceeds the tokens the request may still emit after its pending
+        one, which keeps every speculative write inside its table."""
+        budget = min(self.spec_len, req.max_new_tokens - len(req.out) - 1)
+        if budget <= 0:
+            return None
+        hl = req.seq_len + len(req.out)
+        req.hist[:, hl] = req.next_tok   # pending token caps the history
+        rows = [ngram_propose(req.hist[r, :hl + 1], budget,
+                              min_n=self.spec_ngram)
+                for r in range(req.rows)]
+        k = min(len(d) for d in rows)
+        if k == 0:
+            return None
+        return np.stack([d[:k] for d in rows])
+
+    def _spec_step(self) -> None:
+        """Draft-then-verify decode: ONE verify step of width
+        ``spec_len + 1`` scores every row's pending token plus its draft;
+        rejected drafts need no undo (their positions are never committed).
+        With no drafts at all, falls through to the plain decode step."""
+        drafts: Dict[int, np.ndarray] = {}
+        for req in self._active:
+            d = self._draft(req)
+            if d is not None:
+                drafts[req.rid] = d
+        for req in list(self._active):
+            if req.expired():
+                drafts.pop(req.rid, None)
+                self._retire(req)
+        if not self._active:
+            return
+        if not drafts:
+            self._decode_step()
+            return
+        c = self.spec_len + 1
+        b = self.max_batch
+        for req in list(self._active):
+            d = drafts.get(req.rid)
+            if not self._cow_or_relieve(req, 1 + (d.shape[1] if d is not None
+                                                  else 0)):
+                drafts.pop(req.rid, None)
+        if not self._active:
+            return
+        max_ctx = max(
+            req.pos_next + 1 + (drafts[req.rid].shape[1]
+                                if req.rid in drafts else 0)
+            for req in self._active)
+        m_used = self._table_width(max_ctx)
+        toks = np.zeros((b, c), np.int32)
+        tables = np.zeros((b, m_used), np.int32)  # null block: idle rows
+        pos = np.zeros((b, c), np.int32)
+        last = np.zeros((b,), np.int32)
+        n_rows = 0
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            req, r = slot
+            d = drafts.get(req.rid)
+            k = 0 if d is None else d.shape[1]
+            toks[i, 0] = req.next_tok[r]
+            if k:
+                toks[i, 1:1 + k] = d[r]
+            pos[i] = req.pos_next + np.minimum(
+                np.arange(c, dtype=np.int32), k)
+            last[i] = k
+            tables[i] = req.tables[r][:m_used]
+            n_rows += 1
+        logits = self._call_step(self._verify_fn, toks, tables, pos, last)
+        self.stats["decode_steps"] += 1
+        self.stats["spec_steps"] += 1
+        self.stats["batched_rows"] += n_rows
+        for req in list(self._active):
+            self._advance_spec(req, logits, drafts.get(req.rid))
+
+    def _advance_spec(self, req: _PagedReq, logits: np.ndarray,
+                      draft: Optional[np.ndarray]) -> None:
+        """Commit a verify step's result for one request: exact-match
+        acceptance of the prefix every row accepts, then the same
+        max_new_tokens-then-stop-token checks as :meth:`_advance_decode`,
+        one emitted token at a time."""
+        lx = logits[req.slots]                                  # [R, C, V]
+        k = 0 if draft is None else draft.shape[1]
+        argm = lx.argmax(-1).astype(np.int32)                   # [R, C]
+        n_acc = 0
+        while n_acc < k and bool((argm[:, n_acc] == draft[:, n_acc]).all()):
+            n_acc += 1
+        if k:
+            self.stats["spec_proposed"] += k * req.rows
+            self.stats["spec_accepted"] += n_acc * req.rows
+        req.emit(req.next_tok.copy())
+        req.pos_next += 1
+        for j in range(n_acc + 1):
+            new = argm[:, j]
+            if len(req.out) >= req.max_new_tokens:
+                self._retire(req)
+                return
+            if req.stop_token is not None \
+                    and bool((new == req.stop_token).all()):
+                self._retire(req)             # stop token not emitted
+                return
+            if j < n_acc:
+                # verified: K/V for the token is already resident
+                req.emit(new.copy())
+                req.pos_next += 1
+            else:
+                req.next_tok = new.copy()     # first unverified token
+                return
+
+    # -- decode -------------------------------------------------------------
+    def _decode_step(self) -> None:
+        b = self.max_batch
+        for req in list(self._active):
+            # decode writes rarely hit shared blocks (robustness backstop)
+            self._cow_or_relieve(req, 1)
+        if not self._active:
+            return
+        max_ctx = max(req.pos_next + 1 for req in self._active)
+        m_used = self._table_width(max_ctx)
+        toks = np.zeros((b, 1), np.int32)
+        tables = np.zeros((b, m_used), np.int32)  # null block for idle rows
+        pos = np.zeros((b,), np.int32)
+        n_rows = 0
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            req, r = slot
+            toks[i, 0] = req.next_tok[r]
+            tables[i] = req.tables[r][:m_used]
+            pos[i] = req.pos_next
+            n_rows += 1
+        logits = self._call_step(self._step_fn, toks, tables, pos[:, None],
+                                 np.zeros((b,), np.int32))
+        self.stats["decode_steps"] += 1
+        self.stats["batched_rows"] += n_rows
+        for req in list(self._active):
+            self._advance_decode(req, logits)
+
+    def _advance_decode(self, req: _PagedReq, logits: np.ndarray) -> None:
+        """Emit the fed token, pick the next one, retire if done."""
+        req.emit(req.next_tok.copy())
+        req.pos_next += 1
+        new = logits[req.slots].argmax(-1).astype(np.int32)
+        if len(req.out) >= req.max_new_tokens:
+            self._retire(req)
+            return
+        if req.stop_token is not None \
+                and bool((new == req.stop_token).all()):
+            self._retire(req)                 # stop token not emitted
+            return
+        req.next_tok = new
+
+    # -- SLO accounting -----------------------------------------------------
+    def _note_slo(self, req: _PagedReq) -> None:
+        """Record observed TTFT/TPOT against the request's targets (a
+        request shed before its first token still yields a TTFT)."""
+        now = time.monotonic()
+        if req.ttft_slo_s > 0:
+            ttft = (req.first_emit_at - req.enqueued_at) \
+                if req.first_emit_at is not None else now - req.enqueued_at
+            self._ttft_obs.append((ttft, req.ttft_slo_s))
+            if ttft > req.ttft_slo_s:
+                self.stats["slo_violations"] += 1
+        if req.tpot_slo_s > 0 and req.first_emit_at is not None \
+                and len(req.out) > 1:
+            tpot = (req.last_emit_at - req.first_emit_at) \
+                / (len(req.out) - 1)
+            self._tpot_obs.append((tpot, req.tpot_slo_s))
+            if tpot > req.tpot_slo_s:
+                self.stats["slo_violations"] += 1
+
+    def _slo_adjust(self) -> None:
+        """Halve/double the live ``max_step_tokens`` toward whichever of
+        TTFT/TPOT the recent window violates more, clamped to
+        [max_batch + 1, max_batch * prefill_chunk]."""
+        ttft, tpot = list(self._ttft_obs), list(self._tpot_obs)
+        f_ttft = sum(1 for o, t in ttft if o > t) / len(ttft) if ttft else 0.0
+        f_tpot = sum(1 for o, t in tpot if o > t) / len(tpot) if tpot else 0.0
+        cur = self.max_step_tokens or self._step_budget_cap
+        new = cur
+        if f_tpot > f_ttft and f_tpot > 0.25:
+            new = max(self.max_batch + 1, cur // 2)
+        elif f_ttft > f_tpot and f_ttft > 0.25:
+            new = min(self._step_budget_cap, cur * 2)
+        if new != cur:
+            self.max_step_tokens = new
+            self.stats["slo_adjustments"] += 1
+            self._ttft_obs.clear()
+            self._tpot_obs.clear()
+
+    # -- retirement ---------------------------------------------------------
+    def _retire(self, req: _PagedReq, *,
+                exc: Optional[BaseException] = None) -> None:
+        """Free ALL of the request's resources (device blocks AND any
+        host swap image) and resolve its future."""
+        for r in range(req.rows):
+            self.cache.release((req.rid, r))
+        for s in req.slots:
+            self._slots[s] = None
+        req.slots = []
+        if req in self._active:
+            self._active.remove(req)
+        if req in self._preempted:
+            self._preempted.remove(req)
+        self._note_slo(req)
+        if exc is not None:
+            if not req.future.done():
+                req.future.set_exception(exc)
+            return
+        res = np.stack(req.out, axis=1) if req.out \
+            else np.zeros((req.rows, 0), np.int32)
+        if req.stop_token is not None and res.size:
+            hits = (res == req.stop_token).all(axis=0)
+            if hits.any():
+                res = res[:, :int(np.argmax(hits))]
+        if not req.future.done():
+            req.future.set_result(np.ascontiguousarray(res))
+
+    # -- lifecycle ----------------------------------------------------------
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        self._worker.join(timeout=5.0)
+        with self._cond:
+            while self._queue:
+                p = self._queue.popleft()
+                if not p.future.done():
+                    p.future.set_exception(ShedError("batcher closed"))
+            for p in self._preempted:
+                if not p.future.done():
+                    p.future.set_exception(ShedError("batcher closed"))
+            self._preempted.clear()
+
+    def collect_stats(self) -> Dict[str, float]:
+        """Complete snapshot: every counter in :attr:`stats` plus live
+        scheduler gauges."""
+        out: Dict[str, float] = dict(self.stats)
+        out["active_requests"] = len(self._active)
+        out["queued_requests"] = len(self._queue)
+        out["preempted_requests"] = len(self._preempted)
+        out["free_blocks"] = self.cache.num_free_blocks
+        out["max_step_tokens"] = self.max_step_tokens
+        if self.cache.prefix is not None:
+            out["prefix_indexed_blocks"] = len(self.cache.prefix)
+            out["prefix_evictions"] = self.cache.prefix.evictions
+        return out
