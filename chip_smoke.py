@@ -42,14 +42,20 @@ PROMPT_LENS = (16, 40, 64, 97, 128, 200, 256, 331, 400)
 NEW_TOKENS = 32
 # bf16 tolerances.  Attention outputs: the kernel and the plain version
 # both accumulate in fp32 but in another order, then round to bf16 — one
-# or two bf16 ulps at |o| <= 4 is <= 2e-2 + 2e-2 * |o|.  Logits: 28 layers
-# of bf16 activations carry those ulps forward; 0.25 absolute is several
-# times what one rounding flip moves a logit of magnitude ~1-10 by.  A
-# greedy token split is a fault only where the reference's top-2 margin
-# exceeds the logit tolerance.
+# or two bf16 ulps at |o| <= 4 is <= 2e-2 + 2e-2 * |o|.  Logits: with this
+# init (embedding N(0, 0.02^2), tied unembed after an RMSNorm) a logit has
+# a std of about 0.02 * sqrt(1536) ~ 0.78, and the top two of 151,936 such
+# logits are typically ~0.16 apart.  28 layers of bf16 activations carry
+# the attention's rounding forward; the largest logit difference measured
+# on an H100 was 0.070 (PERF.md), and the limit is about twice that.  A
+# greedy token split is a fault where the reference's top-2 margin exceeds
+# SPLIT_MARGIN, well under the typical gap, and a phase fails on more than
+# MAX_SPLITS splits of any margin.
 ATTN_ATOL = ATTN_RTOL = 2e-2
 F32_ATOL, F32_RTOL = 3e-5, 1e-4     # the JAX kernel tests' f32 tolerances
-LOGIT_TOL = 0.25
+LOGIT_TOL = 0.15
+SPLIT_MARGIN = 0.05
+MAX_SPLITS = 2
 
 
 def emit(line: str) -> None:
@@ -316,7 +322,8 @@ def check_model(torch, dev, state):
             "dtype": cfg.dtype, "init_s": init_s,
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in _leaves(params)),
-            "logit_tol": LOGIT_TOL}
+            "logit_tol": LOGIT_TOL, "split_margin": SPLIT_MARGIN,
+            "max_splits": MAX_SPLITS}
     splits = 0
     for i, step in enumerate(("mixed", "decode")):
         a, r = results["kernel"][i], results["plain"][i]
@@ -329,11 +336,13 @@ def check_model(torch, dev, state):
         for row in range(b):
             if int(a[row].argmax()) != int(r[row].argmax()):
                 margin = _margin(r[row])
-                if margin > LOGIT_TOL:
+                if margin > SPLIT_MARGIN:
                     raise AssertionError(
                         f"{step} step row {row}: argmax split at margin "
                         f"{margin}")
                 splits += 1
+    if splits > MAX_SPLITS:
+        raise AssertionError(f"{splits} argmax splits (limit {MAX_SPLITS})")
     info["argmax_splits_within_tolerance"] = splits
     state.update(engine=engine, plain_model=plain)
     return info
@@ -441,11 +450,14 @@ def serve(torch, bd, pa, dev, state):
         j = int(np.nonzero(a[0] != r[0])[0][0])
         seq = [int(x) for x in prompt] + [int(x) for x in r[0, :j]]
         margin = _margin(last_logits(torch, ref.model, ref.params, seq, dev))
-        if margin > LOGIT_TOL:
+        if margin > SPLIT_MARGIN:
             raise AssertionError(f"token split at output {j} with "
                                  f"reference margin {margin}")
         splits += 1
         worst = margin if worst is None else max(worst, margin)
+    if splits > MAX_SPLITS:
+        raise AssertionError(f"{splits} requests split from the plain "
+                             f"replay (limit {MAX_SPLITS})")
     by_width = {}
     for w, s in widths:
         by_width.setdefault(w, []).append(s * 1e3)
@@ -460,7 +472,8 @@ def serve(torch, bd, pa, dev, state):
                          "max_ms": max(v)} for w, v in sorted(by_width.items())},
             "stats": stats, "tokens_vs_plain": {
                 "tokens_checked": n_tokens, "splits_within_tolerance": splits,
-                "largest_split_margin": worst, "margin_tol": LOGIT_TOL}}
+                "largest_split_margin": worst, "split_margin": SPLIT_MARGIN,
+                "max_splits": MAX_SPLITS}}
 
 
 def profile(torch, dev, state):
@@ -554,6 +567,13 @@ def timing(torch, bd, pa, dev, state):
                          dtype=torch.int32).to(torch.uint8)
     plan = [(0, n_tok, "uint32", "int32")]
     nbytes = 2 * page.numel()
+    def library():
+        # one u32 -> i32 column spanning the whole row is a bitcast: one
+        # PyTorch call (a view and its copy) computes the same function
+        return page.view(torch.int32).clone()
+
+    if not torch.equal(library(), bd.decode_columns(page, plan)[0]):
+        raise AssertionError("decode_columns differs from page.view(int32)")
     kernels.append({
         "name": "bebop_decode.decode_columns", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bebop_decode.cu",
@@ -564,7 +584,7 @@ def timing(torch, bd, pa, dev, state):
         "plain_ms": _cold_ms(
             torch, lambda: bd.decode_columns_plain(page, plan), flush),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": _cold_ms(torch, library, flush),
         "shape": f"page [1, {4 * n_tok}] u8 -> [1, {n_tok}] int32"})
     # decode_column (not on the main path) at a bulk page
     bulk = torch.randint(0, 256, (65536, 64), generator=gen, device=dev,
@@ -575,7 +595,11 @@ def timing(torch, bd, pa, dev, state):
         "plain_ms": _cold_ms(torch, lambda: bd.decode_columns_plain(
             bulk, [(0, 16, "uint32", "int32")]), flush),
         "bound_ms": (bulk.numel() + 65536 * 64) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "launches": launches[
+        "bound_by": "bytes",
+        # 16 u32 at offset 0 fill the 64-byte row: a bitcast again
+        "library_ms": _cold_ms(
+            torch, lambda: bulk.view(torch.int32).clone(), flush),
+        "launches": launches[
             "bebop_decode.decode_column"]}
     extra["bebop_decode.decode_columns@65536x64"] = {
         "ms": _cold_ms(torch, lambda: bd.decode_columns(bulk, DECODE_PLAN),

@@ -143,9 +143,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(pages: torch.Tensor, fields: List[Field]
-            ) -> Tuple[List[torch.Tensor], bool]:
-    """Run the kernel; returns (columns, whether it launched)."""
+def _launch(pages: torch.Tensor, fields: List[Field], wrapper
+            ) -> List[torch.Tensor]:
+    """Run the kernel and count the launch on ``wrapper``."""
     lib = _lib()
     if not pages.is_cuda:
         raise ValueError(f"decode kernel needs a CUDA tensor, got "
@@ -156,7 +156,7 @@ def _launch(pages: torch.Tensor, fields: List[Field]
             for (_, cnt, _, od) in fields]
     live = [(f, o) for f, o in zip(fields, outs) if o.numel()]
     if n == 0 or not live:
-        return outs, False
+        return outs
     k = len(live)
     with torch.cuda.device(pages.device):   # launch on the tensor's card
         err = lib.bebop_decode_columns(
@@ -168,7 +168,8 @@ def _launch(pages: torch.Tensor, fields: List[Field]
             (ctypes.c_void_p * k)(*[o.data_ptr() for _, o in live]),
             torch.cuda.current_stream(pages.device).cuda_stream)
     build.check(err, "bebop_decode_columns")
-    return outs, True
+    build.count_launch(wrapper)
+    return outs
 
 
 def decode_columns(pages: torch.Tensor, fields: Sequence
@@ -182,9 +183,7 @@ def decode_columns(pages: torch.Tensor, fields: Sequence
     fields = _check_fields(pages, fields)
     if pages.device.type == "cpu":
         return decode_columns_plain(pages, fields)
-    outs, launched = _launch(pages, fields)
-    decode_columns.launches += launched
-    return outs
+    return _launch(pages, fields, decode_columns)
 
 
 decode_columns.launches = 0
@@ -197,9 +196,7 @@ def decode_column(pages: torch.Tensor, *, offset: int, count: int,
                                     out_dtype or default_out(wire_dtype))])
     if pages.device.type == "cpu":
         return decode_columns_plain(pages, fields)[0]
-    outs, launched = _launch(pages, fields)
-    decode_column.launches += launched
-    return outs[0]
+    return _launch(pages, fields, decode_column)[0]
 
 
 decode_column.launches = 0

@@ -124,3 +124,13 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  Wrappers are called from many
+    client threads at once, so the read-modify-write holds a lock."""
+    with _count_lock:
+        wrapper.launches += 1

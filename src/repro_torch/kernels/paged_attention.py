@@ -155,7 +155,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             d ** -0.5 if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention_decode")
-    paged_attention.launches += 1
+    build.count_launch(paged_attention)
     return out
 
 
@@ -195,7 +195,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
             d ** -0.5 if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_prefill_attention")
-    paged_prefill_attention.launches += 1
+    build.count_launch(paged_prefill_attention)
     return out
 
 

@@ -13,6 +13,8 @@ JAX oracles in ``kernels/ref.py``) on the same numpy inputs:
 The CUDA cases compare each kernel with its plain version on the card and
 skip where there is none.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from repro.kernels import paged_attention as jpa
 from repro.kernels import ref as jref
 
 from repro_torch.kernels import bebop_decode as bd
+from repro_torch.kernels import build
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 
@@ -193,6 +196,23 @@ def test_ops_dispatch_decode_equals_prefill_and_reference():
     torch.testing.assert_close(dec, ref, atol=ATOL, rtol=RTOL)
     with pytest.raises(ValueError, match="impl"):
         ops.paged_attention(*args, impl="pallas")
+
+
+def test_launch_count_exact_across_threads():
+    """Client threads launch kernels at once; no count may be lost."""
+    def wrapper():
+        pass
+    wrapper.launches = 0
+
+    def hammer():
+        for _ in range(2000):
+            build.count_launch(wrapper)
+    threads = [threading.Thread(target=hammer) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert wrapper.launches == 8 * 2000
 
 
 # -- on the card -----------------------------------------------------------------
