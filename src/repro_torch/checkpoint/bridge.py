@@ -2,10 +2,11 @@
 
 The port keeps the JAX params tree exactly (``embed``, ``final_norm``,
 ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, bq, bk, bv}, mlp/{w_gate,
-w_up, w_down}}``, stacked ``[L, ...]``), so the map is the identity on
-names: ``np.asarray`` each leaf of a JAX params tree (or take the arrays
-``checkpoint/format.py``'s ``flatten_tree`` yields, nested back by their
-``/`` paths) and hand the tree here.
+w_up, w_down}}``, stacked ``[L, ...]``; the hybrid model's ``supers``
+and ``tail``), so the map is the identity on names: ``np.asarray`` each
+leaf of a JAX params tree (or take the arrays ``checkpoint/format.py``'s
+``flatten_tree`` yields, nested back by their ``/`` paths) and hand the
+tree here.
 """
 from __future__ import annotations
 
@@ -14,12 +15,19 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+#: leaves the JAX init keeps in float32 whatever the model dtype: the
+#: RG-LRU's Lambda (``models/rglru.py``), from which the decay
+#: ``a = exp(-8 softplus(Lambda) r)`` is computed in float32
+FLOAT32_LEAVES = frozenset({"lam"})
+
 
 def params_from_numpy(tree: Mapping[str, Any], *, device,
                       dtype: torch.dtype) -> Dict[str, Any]:
-    """Same names, same shapes; every leaf becomes a ``dtype`` tensor on
-    ``device``.  Leaves may be numpy arrays or anything ``np.asarray``
-    takes (a bfloat16 leaf goes through float32, which is exact)."""
+    """Same names, same shapes; every leaf becomes a tensor on ``device``
+    of the model ``dtype``, except the leaves named in
+    :data:`FLOAT32_LEAVES`, which stay float32.  Leaves may be numpy
+    arrays or anything ``np.asarray`` takes (a bfloat16 leaf goes through
+    float32, which is exact)."""
     out: Dict[str, Any] = {}
     for name, leaf in tree.items():
         if isinstance(leaf, Mapping):
@@ -29,5 +37,6 @@ def params_from_numpy(tree: Mapping[str, Any], *, device,
         if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
         out[name] = torch.from_numpy(np.array(arr, order="C")).to(
-            device=device, dtype=dtype)
+            device=device,
+            dtype=torch.float32 if name in FLOAT32_LEAVES else dtype)
     return out

@@ -145,3 +145,38 @@ def test_plain_reference_impl_matches_kernel_dispatch_on_cpu(models):
                                      torch.from_numpy(last))
         outs.append(log)
     torch.testing.assert_close(outs[0], outs[1], **TOL)
+
+
+def test_bridge_keeps_lam_float32_in_a_bf16_hybrid():
+    """A bfloat16 JAX ``HybridLM`` tree round-trips through the bridge with
+    every leaf bfloat16 except the RG-LRU's ``lam``, which the JAX init
+    keeps float32; values are unchanged."""
+    import dataclasses
+    jcfg = dataclasses.replace(
+        jax_reduced_config(jax_get_config("recurrentgemma-9b")),
+        dtype="bfloat16")
+    jparams = jax_get_model(jcfg).init(jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               device="cpu", dtype=torch.bfloat16)
+    jflat = {"/".join(str(k.key) for k in path): leaf for path, leaf in
+             jax.tree_util.tree_flatten_with_path(jparams)[0]}
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + k + "/")
+            else:
+                yield prefix + k, v
+
+    got = dict(flat(params))
+    assert sorted(got) == sorted(jflat)
+    lams = [name for name in got if name.endswith("/lam")]
+    assert lams
+    for name, leaf in got.items():
+        want = np.asarray(jflat[name])
+        assert leaf.dtype == (torch.float32 if name in lams
+                              else torch.bfloat16), name
+        assert str(want.dtype) == ("float32" if name in lams
+                                   else "bfloat16"), name
+        np.testing.assert_array_equal(leaf.float().numpy(),
+                                      want.astype(np.float32), err_msg=name)
