@@ -6,13 +6,26 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, runs a
-full-width qwen2-1.5b (28 layers, d_model 1536, bf16, weights drawn from a
-seeded ``torch.Generator``) through the page-level ``Infer`` path
-(``InferenceImpl.infer``: device page decode -> greedy ``PagedBatcher`` ->
-paged attention kernels), checks that the path launched every kernel and
-that its tokens match a replay through the plain attention, and times each
-kernel beside its plain version and its memory/compute bound.
+holds each against its plain PyTorch version on the card, and drives two
+serving paths at full width, with weights drawn from a seeded
+``torch.Generator``:
+
+* the paged path: qwen2-1.5b (28 layers, d_model 1536, bf16) through the
+  page-level ``Infer`` path (``InferenceImpl.infer``: device page decode
+  -> greedy ``PagedBatcher`` -> paged attention kernels);
+* the dense path: the same model with ``ServeConfig(paged=False)``
+  (``ContinuousBatcher`` -> ``Engine.generate``: flash attention kernel
+  in the prefill), the paged batcher's dense fallback and ``score_page``;
+  and recurrentgemma-9b (38 layers, d_model 4096, bf16), whose only
+  serving path is the dense one (flash attention with a 2,048 window and
+  the RG-LRU scan kernel), including a 2,000-token prompt whose decode
+  wraps the ring cache.
+
+Each path must launch its kernels (counts set to 0 just before it and
+read just after) and match a replay through the plain versions
+(``attention_impl="reference"``).  Each kernel is then timed beside its
+plain version, its memory/compute bound and, where one PyTorch call
+computes the same function, that call.
 
 Every phase prints ``[phase] ok|FAIL <seconds> {json}``; the first failure
 ends the run with a nonzero exit.  The line before the last is the
@@ -40,6 +53,9 @@ SEED = 0
 HQ, HKV, HD, BS = 12, 2, 128, 16
 PROMPT_LENS = (16, 40, 64, 97, 128, 200, 256, 331, 400)
 NEW_TOKENS = 32
+HYBRID_PROMPTS = (0, 3, 5, 7, 8)    # PROMPT_LENS 16, 97, 200, 331, 400
+LONG_PROMPT, LONG_NEW = 2000, 100   # decode crosses the 2,048 window
+SCORE_TOL = 0.02    # mean log-prob, kernel path vs plain replay
 # bf16 tolerances.  Attention outputs: the kernel and the plain version
 # both accumulate in fp32 but in another order, then round to bf16 — one
 # or two bf16 ulps at |o| <= 4 is <= 2e-2 + 2e-2 * |o|.  Logits: with this
@@ -53,6 +69,9 @@ NEW_TOKENS = 32
 # MAX_SPLITS splits of any margin.
 ATTN_ATOL = ATTN_RTOL = 2e-2
 F32_ATOL, F32_RTOL = 3e-5, 1e-4     # the JAX kernel tests' f32 tolerances
+# the RG-LRU kernel rounds its multiply and add apart, as the plain loop
+# does, so float32 should agree to the last bit; the limit is ~1e-5
+RGLRU_F32_ATOL = RGLRU_F32_RTOL = 1e-5
 LOGIT_TOL = 0.15
 SPLIT_MARGIN = 0.05
 MAX_SPLITS = 2
@@ -117,7 +136,9 @@ def main() -> int:
 
     from repro_torch.kernels import bebop_decode as bd
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rglru_scan as rg
 
     @Phase("build")
     def _build():
@@ -132,10 +153,16 @@ def main() -> int:
         lambda: check_decode(torch, bd, dev)))
     state.update(attention_kernels=Phase("attention_kernels")(
         lambda: check_attention(torch, pa, dev)))
+    state.update(flash_kernel=Phase("flash_kernel")(
+        lambda: check_flash(torch, fa, dev)))
+    state.update(rglru_kernel=Phase("rglru_kernel")(
+        lambda: check_rglru(torch, rg, dev)))
     Phase("model")(lambda: check_model(torch, dev, state))
     Phase("serve")(lambda: serve(torch, bd, pa, dev, state))
     Phase("profile")(lambda: profile(torch, dev, state))
-    Phase("timing")(lambda: timing(torch, bd, pa, dev, state))
+    Phase("dense_serve")(lambda: dense_serve(torch, fa, dev, state))
+    Phase("hybrid_serve")(lambda: hybrid_serve(torch, fa, rg, dev, state))
+    Phase("timing")(lambda: timing(torch, bd, pa, fa, rg, dev, state))
     emit(json.dumps({"kernels": state["kernels"]}))
     emit(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -254,6 +281,85 @@ def check_attention(torch, pa, dev):
     torch.cuda.synchronize()
     out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
     out["tolerance_f32"] = {"atol": F32_ATOL, "rtol": F32_RTOL}
+    return out
+
+
+#: (Tq, S, causal, window, q_offset): prefill shapes (Tq == S, ragged),
+#: queries at an offset, non-causal, both windows at S 2100, and rows
+#: whose window holds no key (qpos 14..17 over keys 0..9, window 8)
+FLASH_CASES = ((1, 1, True, None, 0), (7, 7, True, None, 0),
+               (128, 128, True, None, 0), (400, 400, True, None, 0),
+               (64, 300, True, None, 236), (7, 100, True, None, 50),
+               (100, 333, False, None, 0), (2100, 2100, True, 8, 0),
+               (2100, 2100, True, 2048, 0), (4, 10, True, 8, 14))
+#: (Hq, Hkv, D): qwen2-1.5b and recurrentgemma-9b
+FLASH_HEADS = ((12, 2, 128), (16, 1, 256))
+
+
+def check_flash(torch, fa, dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    out = {}
+    for dtype, atol, rtol in ((torch.float32, F32_ATOL, F32_RTOL),
+                              (torch.bfloat16, ATTN_ATOL, ATTN_RTOL)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        worst = 0.0
+        for hq, hkv, d in FLASH_HEADS:
+            for tq, s, causal, window, off in FLASH_CASES:
+                b = 1 if s > 1000 else 2
+                q = torch.randn((b, hq, tq, d), generator=gen,
+                                device=dev).to(dtype)
+                k = torch.randn((b, hkv, s, d), generator=gen,
+                                device=dev).to(dtype)
+                v = torch.randn((b, hkv, s, d), generator=gen,
+                                device=dev).to(dtype)
+                kw = dict(causal=causal, window=window, q_offset=off)
+                got = fa.flash_attention(q, k, v, **kw)
+                want = fa.flash_attention_plain(q, k, v, **kw)
+                ok, err = _close(torch, got, want, atol, rtol)
+                case = f"{tag} Hq {hq} Hkv {hkv} D {d} Tq {tq} S {s} " \
+                       f"causal {causal} window {window} q_offset {off}"
+                if not ok:
+                    raise AssertionError(f"flash {case}: max err {err}")
+                if window is not None:
+                    qpos = torch.arange(tq, device=dev) + off
+                    empty = (qpos - (s - 1)) >= window
+                    if bool(got[:, :, empty].any()):
+                        raise AssertionError(f"flash {case}: a row with no "
+                                             f"valid key is not zero")
+                worst = max(worst, err)
+        out[f"{tag}_max_abs_err"] = worst
+    torch.cuda.synchronize()
+    out["cases"] = 2 * len(FLASH_HEADS) * len(FLASH_CASES)
+    out["fully_masked_rows_zero"] = True
+    out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
+    out["tolerance_f32"] = {"atol": F32_ATOL, "rtol": F32_RTOL}
+    return out
+
+
+def check_rglru(torch, rg, dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
+    for dtype, atol, rtol in ((torch.float32, RGLRU_F32_ATOL, RGLRU_F32_RTOL),
+                              (torch.bfloat16, 2e-2, 2e-2)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for b, t, d in ((2, 4096, 4096), (2, 1, 4096), (3, 17, 100)):
+            x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+            a = torch.rand((b, t, d), generator=gen, device=dev).to(dtype)
+            h, hf = rg.rglru_scan(x, a)
+            h2, hf2 = rg.rglru_scan_plain(x, a)
+            for name, got, want in (("h", h, h2), ("h_final", hf, hf2)):
+                ok, err = _close(torch, got, want, atol, rtol)
+                if not ok or got.dtype != want.dtype:
+                    raise AssertionError(f"rglru {tag} [{b}, {t}, {d}] "
+                                         f"{name}: max err {err}")
+                key = f"{tag}_{name}_max_abs_err"
+                out[key] = max(out.get(key, 0.0), err)
+                if dtype == torch.float32:
+                    out.setdefault("f32_bit_exact", True)
+                    out["f32_bit_exact"] &= bool(torch.equal(got, want))
+    torch.cuda.synchronize()
+    out["tolerance_f32"] = {"atol": RGLRU_F32_ATOL, "rtol": RGLRU_F32_RTOL}
+    out["tolerance_bf16"] = {"atol": 2e-2, "rtol": 2e-2}
     return out
 
 
@@ -464,6 +570,7 @@ def serve(torch, bd, pa, dev, state):
     n_tokens = sum(r["new_tokens"] for r in out)
     state["launches"] = launches
     state["serve_ctx"] = [len(p) + NEW_TOKENS // 2 for p in prompts[1:]]
+    state["serve_tokens"] = toks[:len(prompts)]
     return {"requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
             "tokens_per_s": n_tokens / wall, "launches": launches,
             "steps": len(widths),
@@ -519,6 +626,254 @@ def profile(torch, dev, state):
                                          key=lambda kv: -kv[1])[:8])}
 
 
+# -- the dense paths ------------------------------------------------------------
+
+
+def _dense_margin(torch, engine, seq) -> float:
+    """Top-2 margin of ``engine``'s logits after ``seq``, from a dense
+    prefill (the replay engine: the plain versions)."""
+    toks = torch.tensor([list(seq)], dtype=torch.int32, device=engine.device)
+    logits, _ = engine.model.prefill(engine.params, {"tokens": toks},
+                                     len(seq))
+    return _margin(logits[0])
+
+
+def _match(torch, ref, prompts, got, want, what):
+    """Greedy tokens of two runs, row by row: equal, or split where the
+    plain replay's top-2 margin is within SPLIT_MARGIN, at most MAX_SPLITS
+    times.  ``prompts``/``got``/``want`` are lists of [B, T] / [B, n]."""
+    import numpy as np
+    splits, worst, n = 0, None, 0
+    for prompt, a, r in zip(prompts, got, want):
+        prompt = np.atleast_2d(prompt)
+        if a.shape != r.shape:
+            raise AssertionError(f"{what}: shapes {a.shape} vs {r.shape}")
+        n += a.size
+        for row in range(a.shape[0]):
+            diff = np.nonzero(a[row] != r[row])[0]
+            if diff.size == 0:
+                continue
+            j = int(diff[0])
+            seq = [int(x) for x in prompt[row]] + [int(x) for x in r[row, :j]]
+            margin = _dense_margin(torch, ref, seq)
+            if margin > SPLIT_MARGIN:
+                raise AssertionError(f"{what}: token split at output {j} "
+                                     f"with reference margin {margin}")
+            splits += 1
+            worst = margin if worst is None else max(worst, margin)
+    if splits > MAX_SPLITS:
+        raise AssertionError(f"{what}: {splits} splits (limit {MAX_SPLITS})")
+    return {"tokens_checked": n, "splits_within_tolerance": splits,
+            "largest_split_margin": worst}
+
+
+def _timed_steps(torch, model, widths):
+    """Wrap ``model``'s dense prefill and decode step to record
+    (kind, seconds) of each call, synchronized."""
+    for name in ("prefill", "decode_step"):
+        fn = getattr(model, name)
+
+        def run(*args, _fn=fn, _name=name):
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            torch.cuda.synchronize()   # the engine syncs here anyway
+            widths.append((_name, time.perf_counter() - t0))
+            return out
+        setattr(model, name, run)
+
+
+def _step_summary(widths):
+    out = {}
+    for kind, sec in widths:
+        out.setdefault(kind, []).append(sec * 1e3)
+    return {k: {"calls": len(v), "mean_ms": sum(v) / len(v),
+                "max_ms": max(v)} for k, v in out.items()}
+
+
+def _tokens(out):
+    from repro_torch.serving import decode_token_page
+    return [decode_token_page(r["page"]).astype("int64") for r in out]
+
+
+def dense_serve(torch, fa, dev, state):
+    """qwen2-1.5b through ``ServeConfig(paged=False)``: InferenceImpl ->
+    ContinuousBatcher -> Engine.generate (flash attention in the
+    prefill); then the paged batcher's dense fallback and score_page."""
+    import numpy as np
+    from repro_torch.serving import (ContinuousBatcher, Engine,
+                                     InferenceImpl, ServeConfig,
+                                     encode_prompt_page)
+    paged = state["engine"]
+    cfg = paged.cfg
+    engine = Engine(cfg, ServeConfig(paged=False), params=paged.params,
+                    device=dev)
+    ref = Engine(dataclasses.replace(cfg, attention_impl="reference"),
+                 ServeConfig(paged=False), params=paged.params, device=dev)
+    prompts = _prompts(cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 5)
+    # three one-row pages of one length, sent with the rest: the batcher
+    # merges them into one run
+    prompts += [rng.integers(0, cfg.vocab_size, 48) for _ in range(3)]
+    wave = [(encode_prompt_page(p[None]), NEW_TOKENS) for p in prompts]
+    impl = InferenceImpl(engine)
+    if not isinstance(impl.batcher, ContinuousBatcher):
+        raise AssertionError(f"paged=False gave {type(impl.batcher)}")
+    widths = []
+    _timed_steps(torch, engine.model, widths)
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = _drive(impl, wave)
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    stats = impl.batcher.collect_stats()
+    prefills = engine.stats["prefills"]
+    if launches < cfg.num_layers * prefills or prefills == 0:
+        raise AssertionError(f"flash attention launched {launches} times "
+                             f"for {prefills} prefills of {cfg.num_layers} "
+                             f"layers")
+    if stats["batched_rows"] <= stats["batches"]:
+        raise AssertionError(f"no requests merged: {stats}")
+    toks = _tokens(out)
+    for t, (_, n) in zip(toks, wave):
+        if t.shape != (1, n) or int(t.max()) >= cfg.vocab_size:
+            raise AssertionError(f"bad response {t.shape} for {n} tokens")
+    ref_impl = InferenceImpl(ref)
+    ref_toks = _tokens(_drive(ref_impl, wave))
+    vs_plain = _match(torch, ref, [p[None] for p in prompts], toks,
+                      ref_toks, "dense vs plain replay")
+    n_paged = len(state["serve_tokens"])
+    vs_paged = _match(torch, ref, [p[None] for p in prompts[:n_paged]],
+                      toks[:n_paged], state["serve_tokens"],
+                      "dense vs paged serve")
+    # 12 rows exceed the paged batcher's max_batch 8: dense fallback
+    big = rng.integers(0, cfg.vocab_size, (12, 24))
+    paged_impl = InferenceImpl(paged)
+    fa.flash_attention.launches = 0
+    res = paged_impl.infer(encode_prompt_page(big), max_new_tokens=8)
+    fallback_launches = fa.flash_attention.launches
+    paged_stats = paged_impl.batcher.collect_stats()
+    paged_impl.close()
+    if paged_stats["dense_fallbacks"] != 1 or paged_stats["shed"] != 0:
+        raise AssertionError(f"12-row page: {paged_stats}")
+    big_toks = _tokens([res])
+    fallback = _match(torch, ref, [big], big_toks,
+                      [ref.generate(big, max_new_tokens=8)],
+                      "dense fallback vs plain replay")
+    # score_page on a 2-row page
+    page = encode_prompt_page(rng.integers(0, cfg.vocab_size, (2, 64)))
+    fa.flash_attention.launches = 0
+    scores = impl.score_page(page)["scores"]
+    score_launches = fa.flash_attention.launches
+    ref_scores = ref_impl.score_page(page)["scores"]
+    impl.close()
+    ref_impl.close()
+    if scores.shape != (2,) or not np.isfinite(scores).all() \
+            or float(np.abs(scores - ref_scores).max()) > SCORE_TOL:
+        raise AssertionError(f"scores {scores} vs plain {ref_scores}")
+    if score_launches < cfg.num_layers:
+        raise AssertionError(f"score launched flash {score_launches} times")
+    n_tokens = sum(t.size for t in toks)
+    state["dense_launches"] = launches
+    return {"requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall, "stats": stats,
+            "engine_stats": dict(engine.stats),
+            "steps": _step_summary(widths),
+            "launches": {"flash_attention.flash_attention": launches,
+                         "dense_fallback": fallback_launches,
+                         "score_page": score_launches},
+            "tokens_vs_plain": vs_plain, "tokens_vs_paged": vs_paged,
+            "dense_fallback": {"stats_dense_fallbacks":
+                               paged_stats["dense_fallbacks"], **fallback},
+            "scores": scores.tolist(), "plain_scores": ref_scores.tolist(),
+            "score_tol": SCORE_TOL}
+
+
+def hybrid_serve(torch, fa, rg, dev, state):
+    """recurrentgemma-9b at full width through InferenceImpl (the default
+    ServeConfig gives the dense ContinuousBatcher: the family has no
+    paged KV), score_page, and a 2,000-token prompt at cache_len 4096
+    whose 100-token decode wraps the 2,048-slot ring cache."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serving import (ContinuousBatcher, Engine,
+                                     InferenceImpl, ServeConfig,
+                                     encode_prompt_page)
+    cfg = get_config("recurrentgemma-9b")
+    t0 = time.perf_counter()
+    engine = Engine(cfg, ServeConfig(), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    ref = Engine(plain_cfg, ServeConfig(), params=engine.params, device=dev)
+    long_sc = ServeConfig(cache_len=2 * cfg.window)
+    long_engine = Engine(cfg, long_sc, params=engine.params, device=dev)
+    long_ref = Engine(plain_cfg, long_sc, params=engine.params, device=dev)
+    all_prompts = _prompts(cfg.vocab_size)
+    prompts = [all_prompts[i] for i in HYBRID_PROMPTS]
+    rng = np.random.default_rng(SEED + 8)
+    long_prompt = rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT))
+    score_page = encode_prompt_page(rng.integers(0, cfg.vocab_size, (2, 64)))
+    wave = [(encode_prompt_page(p[None]), NEW_TOKENS) for p in prompts]
+    long_page = [(encode_prompt_page(long_prompt), LONG_NEW)]
+    impl, long_impl = InferenceImpl(engine), InferenceImpl(long_engine)
+    if not isinstance(impl.batcher, ContinuousBatcher):
+        raise AssertionError(f"hybrid got {type(impl.batcher)}")
+    widths = []
+    _timed_steps(torch, engine.model, widths)
+    _timed_steps(torch, long_engine.model, widths)
+    fa.flash_attention.launches = 0
+    rg.rglru_scan.launches = 0
+    t0 = time.perf_counter()
+    out = _drive(impl, wave)
+    wall = time.perf_counter() - t0
+    scores = impl.score_page(score_page)["scores"]
+    t1 = time.perf_counter()
+    long_out = _drive(long_impl, long_page)
+    long_wall = time.perf_counter() - t1
+    launches = {"flash_attention.flash_attention":
+                fa.flash_attention.launches,
+                "rglru_scan.rglru_scan": rg.rglru_scan.launches}
+    impl.close()
+    long_impl.close()
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the hybrid path: "
+                             f"{missing} ({launches})")
+    toks, long_toks = _tokens(out), _tokens(long_out)
+    for t, (_, n) in zip(toks + long_toks, wave + long_page):
+        if t.shape != (1, n) or int(t.max()) >= cfg.vocab_size:
+            raise AssertionError(f"bad response {t.shape} for {n} tokens")
+    ref_impl, long_ref_impl = InferenceImpl(ref), InferenceImpl(long_ref)
+    ref_toks = _tokens(_drive(ref_impl, wave))
+    ref_scores = ref_impl.score_page(score_page)["scores"]
+    ref_long = _tokens(_drive(long_ref_impl, long_page))
+    ref_impl.close()
+    long_ref_impl.close()
+    vs_plain = _match(torch, ref, [p[None] for p in prompts] + [long_prompt],
+                      toks + long_toks, ref_toks + ref_long,
+                      "hybrid vs plain replay")
+    if scores.shape != (2,) or not np.isfinite(scores).all() \
+            or float(np.abs(scores - ref_scores).max()) > SCORE_TOL:
+        raise AssertionError(f"scores {scores} vs plain {ref_scores}")
+    n_tokens = sum(t.size for t in toks)
+    state["hybrid_launches"] = launches
+    return {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "lru_width": cfg.lru_width, "vocab": cfg.vocab_size,
+            "dtype": cfg.dtype, "init_s": init_s,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(engine.params)),
+            "requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall,
+            "long": {"prompt": LONG_PROMPT, "new_tokens": LONG_NEW,
+                     "cache_len": long_sc.cache_len, "window": cfg.window,
+                     "wall_s": long_wall,
+                     "tokens_per_s": LONG_NEW / long_wall},
+            "steps": _step_summary(widths), "launches": launches,
+            "engine_stats": dict(engine.stats),
+            "tokens_vs_plain": vs_plain, "scores": scores.tolist(),
+            "plain_scores": ref_scores.tolist(), "score_tol": SCORE_TOL}
+
+
 # -- timing ------------------------------------------------------------------
 
 
@@ -555,7 +910,23 @@ def _attn_bound(qpos_rows, t, m, itemsize=2):
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
-def timing(torch, bd, pa, dev, state):
+def _flash_bound(b, hq, hkv, tq, s, d, pairs, itemsize=2):
+    """Least time for one flash-attention call: bytes (q, k, v in, out)
+    over HBM bandwidth vs the QK and PV products of the unmasked
+    (query, key) pairs over bf16 peak; the larger wins."""
+    nbytes = (2 * b * hq * tq * d + 2 * b * hkv * s * d) * itemsize
+    flops = 4 * d * b * hq * pairs
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def _causal_pairs(t, window=None):
+    """Unmasked (query, key) pairs of causal self-attention over t tokens."""
+    w = t if window is None else min(window, t)
+    return sum(min(i + 1, w) for i in range(t))
+
+
+def timing(torch, bd, pa, fa, rg, dev, state):
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -590,7 +961,12 @@ def timing(torch, bd, pa, dev, state):
     bulk = torch.randint(0, 256, (65536, 64), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
     col = dict(offset=0, count=16, wire_dtype="uint32", out_dtype="int32")
-    extra["bebop_decode.decode_column@65536x64"] = {
+    kernels.append({
+        "name": "bebop_decode.decode_column", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bebop_decode.cu",
+        "replaces": "src/repro/kernels/bebop_decode.py:69",
+        "launches": launches["bebop_decode.decode_column"],
+        "max_abs_err": state["decode_kernel"]["max_abs_err"],
         "ms": _cold_ms(torch, lambda: bd.decode_column(bulk, **col), flush),
         "plain_ms": _cold_ms(torch, lambda: bd.decode_columns_plain(
             bulk, [(0, 16, "uint32", "int32")]), flush),
@@ -599,8 +975,8 @@ def timing(torch, bd, pa, dev, state):
         # 16 u32 at offset 0 fill the 64-byte row: a bitcast again
         "library_ms": _cold_ms(
             torch, lambda: bulk.view(torch.int32).clone(), flush),
-        "launches": launches[
-            "bebop_decode.decode_column"]}
+        "shape": "page [65536, 64] u8 -> [65536, 16] int32 (not on the "
+                 "served path)"})
     extra["bebop_decode.decode_columns@65536x64"] = {
         "ms": _cold_ms(torch, lambda: bd.decode_columns(bulk, DECODE_PLAN),
                        flush),
@@ -671,6 +1047,63 @@ def timing(torch, bd, pa, dev, state):
                 "bound_ms": bound, "bound_by": by, "library_ms": None,
                 "shape": f"B {b}, Hq {HQ}, Hkv {HKV}, D {HD}, bs {BS}, M {m}, "
                          f"T {t}, ctx {ctx}, bf16"})
+    # flash attention at qwen2-1.5b's longest served prefill (B 1, T 400)
+    # and, as an extra row, recurrentgemma-9b's long prompt (T 2000)
+    for name, (hq, hkv, d, t, window) in (
+            ("qwen2", (HQ, HKV, HD, max(PROMPT_LENS), None)),
+            ("recurrentgemma", (16, 1, 256, LONG_PROMPT, 2048))):
+        q = torch.randn((1, hq, t, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        k = torch.randn((1, hkv, t, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        v = torch.randn((1, hkv, t, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        bound, by = _flash_bound(1, hq, hkv, t, t, d, _causal_pairs(t, window))
+        entry = {
+            "ms": _cold_ms(torch, lambda: fa.flash_attention(
+                q, k, v, window=window), flush),
+            "plain_ms": _cold_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, window=window), flush),
+            "bound_ms": bound, "bound_by": by,
+            # yardstick only, the port never calls it: the same function
+            # here (Tq == S, q_offset 0, the window wider than T)
+            "library_ms": _cold_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), flush),
+            "shape": f"B 1, Hq {hq}, Hkv {hkv}, D {d}, T {t}, causal, "
+                     f"window {window}, bf16"}
+        if name == "recurrentgemma":
+            entry["launches_on_hybrid_path"] = state["hybrid_launches"][
+                "flash_attention.flash_attention"]
+            extra[f"flash_attention@{name}_T{t}"] = entry
+            continue
+        kernels.append({
+            "name": "flash_attention.flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:95",
+            "launches": state["dense_launches"],
+            "max_abs_err": state["flash_kernel"]["bf16_max_abs_err"],
+            **entry})
+    # the RG-LRU scan at recurrentgemma-9b's longest served prompt of the
+    # wave, in the float32 the model feeds it
+    t = max(PROMPT_LENS)
+    x = torch.randn((1, t, 4096), generator=gen, device=dev)
+    a = torch.rand((1, t, 4096), generator=gen, device=dev)
+    nbytes = 3 * x.numel() * 4 + 4096 * 4
+    kernels.append({
+        "name": "rglru_scan.rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:51",
+        "launches": state["hybrid_launches"]["rglru_scan.rglru_scan"],
+        "max_abs_err": state["rglru_kernel"]["f32_h_max_abs_err"],
+        "ms": _cold_ms(torch, lambda: rg.rglru_scan(x, a), flush),
+        "plain_ms": _cold_ms(torch, lambda: rg.rglru_scan_plain(x, a), flush,
+                             iters=5),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # no single PyTorch call computes a linear recurrence
+        # (cumsum/cumprod forms need a division by the running product)
+        "library_ms": None,
+        "shape": f"x, a [1, {t}, 4096] float32"})
     state["kernels"] = kernels
     return {"card": state["smi"], "extra": extra}
 

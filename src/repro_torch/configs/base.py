@@ -24,13 +24,17 @@ class MoEConfig:
 class ModelConfig:
     """One architecture's hyperparameters.
 
-    ``attention_impl`` selects how the paged attention runs:
+    ``attention_impl`` selects how every kernel on the model path runs
+    (paged attention, flash attention and the RG-LRU scan):
     ``"kernel"`` (the default here) launches the hand-written CUDA kernel
     for CUDA tensors and uses its plain PyTorch version for CPU tensors;
     ``"reference"`` calls the plain version by name on any device.  This
-    departs from the JAX package, whose default is ``"reference"`` and
-    whose models reach their Pallas kernel only when asked: in the port
-    the kernel is the default on the card.
+    departs from the JAX package in two ways: its default is
+    ``"reference"``, so its models reach their Pallas kernels only when
+    asked, where in the port the kernel is the default on the card; and
+    its recurrent block calls the RG-LRU scan with no impl, where the
+    port passes this field, so that ``"reference"`` selects the plain
+    version of every kernel on the path.
     """
 
     name: str

@@ -1,2 +1,3 @@
-"""Models ported so far: the dense decoder on the paged serving path."""
-from .transformer import DecoderLM, get_model  # noqa: F401
+"""Models ported so far: the dense decoder (paged and dense serving) and
+the hybrid RecurrentGemma model (dense serving)."""
+from .transformer import DecoderLM, HybridLM, get_model  # noqa: F401

@@ -1,5 +1,6 @@
-"""Model building blocks for the paged decoder: norm, RoPE, GQA attention
-against the block pool, SwiGLU MLP, embed and unembed.
+"""Model building blocks: norm, RoPE, GQA attention (full-sequence,
+dense prefill and cached decode, and against the paged block pool),
+SwiGLU/GeGLU MLP, embed and unembed, and the seeded initializer.
 
 Functions on tensors with parameters in plain dicts, as in the JAX
 package's ``models/layers.py``; layer parameters are stacked ``[L, ...]``
@@ -8,13 +9,14 @@ go to ``torch.matmul``, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.flash_attention import flash_attention_plain
 
 Params = Dict[str, Any]
 
@@ -22,8 +24,92 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
+_MROPE_TODO = ("M-RoPE (qwen2-vl) is not ported yet (ROADMAP.md, Queue 1: "
+               "other model families)")
+
+
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+class Initializer:
+    """Seeded parameter draws on one device, with the JAX init's
+    distributions: dense ``N(0, 1) / sqrt(d_in)``, embedding
+    ``N(0, 0.02^2)``, zero biases, unit norms.  Draws are float32 and cast
+    to ``dtype``; a leading ``n`` stacks ``n`` layers, drawn one at a time
+    so the float32 scratch stays one layer's size.  (The two frameworks
+    draw different numbers from one seed; tests that need equal weights
+    pass the JAX params through
+    :func:`repro_torch.checkpoint.bridge.params_from_numpy`.)"""
+
+    def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+    def normal(self, shape: Sequence[int], std: float,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return (torch.randn(tuple(shape), generator=self.gen,
+                            device=self.device, dtype=torch.float32)
+                * std).to(dtype or self.dtype)
+
+    def stacked(self, n: Optional[int], draw) -> torch.Tensor:
+        """``draw()`` once (``n`` None) or ``n`` times into one stacked
+        tensor."""
+        if n is None:
+            return draw()
+        first = draw()
+        out = torch.empty((n, *first.shape), dtype=first.dtype,
+                          device=self.device)
+        out[0] = first
+        for i in range(1, n):
+            out[i] = draw()
+        return out
+
+    def dense(self, n: Optional[int], d_in: int, d_out: int) -> torch.Tensor:
+        return self.stacked(n, lambda: self.normal((d_in, d_out),
+                                                   d_in ** -0.5))
+
+    def uniform(self, n: Optional[int], shape: Sequence[int], lo: float,
+                hi: float) -> torch.Tensor:
+        """float32 ``U(lo, hi)``, kept in float32."""
+        return self.stacked(n, lambda: torch.rand(
+            tuple(shape), generator=self.gen, device=self.device,
+            dtype=torch.float32) * (hi - lo) + lo)
+
+    def _lead(self, n: Optional[int], shape: Sequence[int]):
+        return tuple(shape) if n is None else (n, *shape)
+
+    def zeros(self, n: Optional[int], *shape: int) -> torch.Tensor:
+        return torch.zeros(self._lead(n, shape), dtype=self.dtype,
+                           device=self.device)
+
+    def ones(self, n: Optional[int], *shape: int) -> torch.Tensor:
+        return torch.ones(self._lead(n, shape), dtype=self.dtype,
+                          device=self.device)
+
+    def attention(self, n: Optional[int], cfg: ModelConfig) -> Params:
+        p = {"wq": self.dense(n, cfg.d_model, cfg.q_dim),
+             "wk": self.dense(n, cfg.d_model, cfg.kv_dim),
+             "wv": self.dense(n, cfg.d_model, cfg.kv_dim),
+             "wo": self.dense(n, cfg.q_dim, cfg.d_model)}
+        if cfg.qkv_bias:
+            p.update(bq=self.zeros(n, cfg.q_dim), bk=self.zeros(n, cfg.kv_dim),
+                     bv=self.zeros(n, cfg.kv_dim))
+        return p
+
+    def mlp(self, n: Optional[int], cfg: ModelConfig) -> Params:
+        return {"w_gate": self.dense(n, cfg.d_model, cfg.d_ff),
+                "w_up": self.dense(n, cfg.d_model, cfg.d_ff),
+                "w_down": self.dense(n, cfg.d_ff, cfg.d_model)}
+
+    def embedding(self, cfg: ModelConfig) -> Params:
+        p = {"embed": self.normal((cfg.vocab_size, cfg.d_model), 0.02)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = self.normal((cfg.d_model, cfg.vocab_size),
+                                       cfg.d_model ** -0.5)
+        return p
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -67,6 +153,145 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
+def _pos_embed(q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor):
+    if cfg.mrope:
+        raise NotImplementedError(_MROPE_TODO)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cfg: ModelConfig, *, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    """Full-sequence attention: the query-chunked plain path for long
+    sequences under ``attention_impl="reference"`` (as in JAX), else
+    ``ops.attention``, which takes the flash kernel on the card."""
+    if q.shape[2] >= cfg.attention_chunk_threshold \
+            and cfg.attention_impl == "reference":
+        return _chunked_attention(q, k, v, cfg, causal=causal, window=window)
+    return ops.attention(q, k, v, causal=causal, window=window,
+                         impl=cfg.attention_impl)
+
+
+def attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence attention (scoring; training in JAX)."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = _pos_embed(q, k, cfg, positions)
+    o = _attend(q, k, v, cfg, causal=causal, window=window)
+    o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
+    return o @ p["wo"]
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       cfg: ModelConfig, *, causal: bool,
+                       window: Optional[int]) -> torch.Tensor:
+    """Q-chunked plain attention: scores materialize ``[*, q_chunk, S]``
+    at a time (a loop over query chunks takes the place of the JAX scan).
+    With a window, a chunk starting at ``p`` attends only to the KV span
+    ``[p - window, p + q_chunk)``, clamped into the sequence."""
+    b, h, t, d = q.shape
+    qc = min(cfg.attention_q_chunk, t)
+    if t % qc:
+        raise ValueError(f"sequence {t} is not a multiple of the query "
+                         f"chunk {qc}")
+    s_len = k.shape[2]
+    outs = []
+    for idx in range(t // qc):
+        qblk = q[:, :, idx * qc:(idx + 1) * qc]
+        if window is not None and window + qc < s_len:
+            span = window + qc
+            start = min(max(idx * qc - window, 0), s_len - span)
+            o = flash_attention_plain(
+                qblk, k[:, :, start:start + span], v[:, :, start:start + span],
+                causal=causal, window=window, q_offset=idx * qc - start)
+        else:
+            o = flash_attention_plain(qblk, k, v, causal=causal,
+                                      window=window, q_offset=idx * qc)
+        outs.append(o)
+    return torch.cat(outs, dim=2)
+
+
+def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor, cache_len: int, *,
+                      window: Optional[int] = None):
+    """Prefill: full-sequence causal attention that also returns the KV
+    cache, k/v ``[B, Hkv, max(cache_len, T), hd]`` with the first T slots
+    filled (padded to ``cache_len`` only when T is shorter, as in JAX)."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = _pos_embed(q, k, cfg, positions)
+    o = _attend(q, k, v, cfg, causal=True, window=window)
+    o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
+    out = o @ p["wo"]
+    pad = cache_len - t
+    if pad > 0:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    return out, {"k": k.contiguous(), "v": v.contiguous()}
+
+
+def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     cache: Dict[str, torch.Tensor], pos: int, *,
+                     window: Optional[int] = None):
+    """Single-token decode against a KV cache, updated IN PLACE.
+
+    x: [B, 1, D]; cache k/v: [B, Hkv, S, hd]; pos: absolute position of
+    the new token (a host int).  A local-attention cache exactly
+    ``window`` long is a ring (slot ``pos % window``).  Otherwise the new
+    K/V go to slot ``min(pos, S - 1)``: JAX's ``dynamic_update_slice``
+    clamps its start index, so past the cache every token overwrites the
+    last slot and all ``S`` slots take part.  Returns (out [B, 1, D],
+    cache).
+    """
+    b, t, _ = x.shape
+    q, k_new, v_new = _project_qkv(p, x, cfg)
+    bpos = torch.full((b, t), pos, dtype=torch.int64, device=x.device)
+    q, k_new = _pos_embed(q, k_new, cfg, bpos)
+    k, v = cache["k"], cache["v"]
+    s = k.shape[2]
+    if window is not None and s == window:
+        slot = pos % window
+        k[:, :, slot] = k_new[:, :, 0]
+        v[:, :, slot] = v_new[:, :, 0]
+        # slot i holds absolute position pos - ((slot - i) mod window)
+        idx = torch.arange(window, device=x.device)
+        valid = (pos - torch.remainder(slot - idx, window)) >= 0
+        g = cfg.num_heads // cfg.num_kv_heads
+        qr = q.reshape(b, cfg.num_kv_heads, g, t, cfg.head_dim)
+        logits = torch.einsum("bhgqd,bhsd->bhgqs", qr.float(),
+                              k.float()) * cfg.head_dim ** -0.5
+        logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhgqs,bhsd->bhgqd", probs, v.float())
+        o = o.reshape(b, cfg.num_heads, t, cfg.head_dim)
+    else:
+        slot = min(pos, s - 1)
+        k[:, :, slot] = k_new[:, :, 0]
+        v[:, :, slot] = v_new[:, :, 0]
+        o = _decode_attend(q, k, v, cfg, pos)
+    o = o.to(x.dtype).transpose(1, 2).reshape(b, t, cfg.q_dim)
+    return o @ p["wo"], cache
+
+
+def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: ModelConfig, pos: int) -> torch.Tensor:
+    """Masked decode attention: only cache slots <= pos participate."""
+    b = q.shape[0]
+    g = cfg.num_heads // cfg.num_kv_heads
+    qr = q.reshape(b, cfg.num_kv_heads, g, 1, cfg.head_dim)
+    logits = torch.einsum("bhgqd,bhsd->bhgqs", qr.float(),
+                          k.float()) * cfg.head_dim ** -0.5
+    valid = torch.arange(k.shape[2], device=q.device) <= pos
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqs,bhsd->bhgqd", probs, v.float())
+    return o.reshape(b, cfg.num_heads, 1, cfg.head_dim)
+
+
 def attention_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     k_pool: torch.Tensor, v_pool: torch.Tensor,
                     block_tables: torch.Tensor, positions: torch.Tensor,
@@ -87,8 +312,7 @@ def attention_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """
     b, c, _ = x.shape
     q, k_new, v_new = _project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    q, k_new = _pos_embed(q, k_new, cfg, positions)
     bs = k_pool.shape[2]
     m = block_tables.shape[1]
     # clamp: padded prefill positions past the table write into whatever

@@ -1,11 +1,15 @@
-"""Decoder-only LM over the paged KV pool (the serving path).
+"""Model assembly: the dense decoder LM (paged serving, dense prefill and
+decode, full-sequence logits) and the hybrid LM (RecurrentGemma).
 
-The JAX package's ``DecoderLM`` scans stacked ``[L, ...]`` layer
-parameters with ``jax.lax.scan``; here a Python loop over layers takes the
-place of the scan and each layer's parameters are views into the same
-stacked tensors, so the parameter tree is the JAX one unchanged:
+The JAX package stacks layer parameters ``[L, ...]`` and consumes them
+with ``jax.lax.scan``; here a Python loop over layers takes the place of
+the scan and each layer's parameters are views into the same stacked
+tensors, so the parameter trees are the JAX ones unchanged:
 ``embed``, ``final_norm``, ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, bq,
-bk, bv}, mlp/{w_gate, w_up, w_down}}``.
+bk, bv}, mlp/{w_gate, w_up, w_down}}`` for the decoder; ``supers/b{i}``
+(stacked over super-blocks) and ``tail/t{i}`` for the hybrid.  Caches
+keep the JAX layout too (``k``/``v`` ``[L, B, Hkv, S, hd]``); decode
+updates them in place where JAX returns a new cache.
 """
 from __future__ import annotations
 
@@ -15,14 +19,64 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import rglru as R
 
 Params = Dict[str, Any]
+Batch = Dict[str, torch.Tensor]
+
+_FAMILY_TODO = "is not ported yet (ROADMAP.md, Queue 1: other model families)"
 
 
 def _layer(tree: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tree."""
+    """Layer ``i``'s parameters (or cache): views into the stacked
+    ``[L, ...]`` tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _stack(trees) -> Params:
+    """Per-layer trees -> one tree of stacked ``[L, ...]`` tensors."""
+    first = trees[0]
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in first.items()}
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    b, t = tokens.shape
+    return torch.arange(t, device=tokens.device).expand(b, t)
+
+
+def _window(cfg: ModelConfig):
+    return cfg.window if cfg.attention_kind == "local" else None
+
+
+def decoder_layer_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                        positions: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + L.attention_train(p["attn"], h, cfg, positions,
+                              window=_window(cfg))
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, cfg)
+
+
+def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                          positions: torch.Tensor, cache_len: int):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    att, kv = L.attention_prefill(p["attn"], h, cfg, positions, cache_len,
+                                  window=_window(cfg))
+    x = x + att
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, cfg), kv
+
+
+def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                         cache: Dict[str, torch.Tensor], pos: int):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    att, kv = L.attention_decode(p["attn"], h, cfg, cache, pos,
+                                 window=_window(cfg))
+    x = x + att
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, cfg), kv
 
 
 def decoder_layer_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -41,60 +95,95 @@ def decoder_layer_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 class DecoderLM:
-    """Decoder-only LM (dense GQA family) on the paged serving path."""
+    """Decoder-only LM (dense GQA family): paged serving steps, dense
+    prefill and decode against a ``[L, B, Hkv, S, hd]`` cache, and
+    full-sequence logits.  MoE, RWKV and non-token inputs raise."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
     # -- params ---------------------------------------------------------------
     def init(self, seed: int, device: torch.device) -> Params:
-        """Random parameters from a seeded ``torch.Generator`` on ``device``,
-        with the JAX init's distributions: dense ``N(0, 1) / sqrt(d_in)``,
-        embedding ``N(0, 0.02^2)``, zero biases, unit norms.  (The two
-        frameworks draw different numbers from one seed; tests that need
-        equal weights pass the JAX params through
-        :func:`repro_torch.checkpoint.bridge.params_from_numpy`.)"""
+        """Random parameters from a seeded ``torch.Generator`` on
+        ``device`` (see :class:`~repro_torch.models.layers.Initializer`)."""
         cfg = self.cfg
-        dt = L.dtype_of(cfg)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        init = L.Initializer(seed, device, L.dtype_of(cfg))
         n = cfg.num_layers
-
-        def normal(shape, std):
-            return (torch.randn(shape, generator=gen, device=device,
-                                dtype=torch.float32) * std).to(dt)
-
-        def dense(d_in, d_out):
-            w = torch.empty((n, d_in, d_out), dtype=dt, device=device)
-            for i in range(n):   # one layer at a time: small fp32 scratch
-                w[i] = normal((d_in, d_out), d_in ** -0.5)
-            return w
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=dt, device=device)
-
-        def ones(*shape):
-            return torch.ones(shape, dtype=dt, device=device)
-
-        p: Params = {"embed": normal((cfg.vocab_size, cfg.d_model), 0.02)}
-        if not cfg.tie_embeddings:
-            p["lm_head"] = normal((cfg.d_model, cfg.vocab_size),
-                                  cfg.d_model ** -0.5)
-        attn = {"wq": dense(cfg.d_model, cfg.q_dim),
-                "wk": dense(cfg.d_model, cfg.kv_dim),
-                "wv": dense(cfg.d_model, cfg.kv_dim),
-                "wo": dense(cfg.q_dim, cfg.d_model)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(n, cfg.q_dim), bk=zeros(n, cfg.kv_dim),
-                        bv=zeros(n, cfg.kv_dim))
-        p["layers"] = {
-            "ln1": ones(n, cfg.d_model), "ln2": ones(n, cfg.d_model),
-            "attn": attn,
-            "mlp": {"w_gate": dense(cfg.d_model, cfg.d_ff),
-                    "w_up": dense(cfg.d_model, cfg.d_ff),
-                    "w_down": dense(cfg.d_ff, cfg.d_model)}}
-        p["final_norm"] = ones(cfg.d_model)
+        p: Params = init.embedding(cfg)
+        p["layers"] = {"ln1": init.ones(n, cfg.d_model),
+                       "ln2": init.ones(n, cfg.d_model),
+                       "attn": init.attention(n, cfg),
+                       "mlp": init.mlp(n, cfg)}
+        p["final_norm"] = init.ones(None, cfg.d_model)
         return p
+
+    def _check_dense(self) -> None:
+        """The families this class does not serve yet raise here."""
+        cfg = self.cfg
+        if cfg.moe is not None:
+            raise NotImplementedError(f"{cfg.name}: MoE {_FAMILY_TODO}")
+        if cfg.rwkv:
+            raise NotImplementedError(f"{cfg.name}: RWKV {_FAMILY_TODO}")
+        if cfg.input_kind != "tokens":
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.input_kind} inputs {_FAMILY_TODO}")
+
+    # -- full sequence (scoring) -------------------------------------------------
+    def forward(self, params: Params, batch: Batch
+                ) -> Tuple[torch.Tensor, float]:
+        """Final hidden states [B, T, D] over whole sequences, and the
+        auxiliary loss (0: no MoE here)."""
+        self._check_dense()
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = L.embed(params, tokens, cfg)
+        positions = _positions(tokens)
+        for i in range(cfg.num_layers):
+            x = decoder_layer_train(_layer(params["layers"], i), x, cfg,
+                                    positions)
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+
+    def logits(self, params: Params, batch: Batch) -> torch.Tensor:
+        x, _ = self.forward(params, batch)
+        return L.unembed(params, x, self.cfg)
+
+    # -- dense serving -----------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int, device) -> Params:
+        cfg = self.cfg
+        s = min(cache_len, cfg.window) if cfg.attention_kind == "local" \
+            else cache_len
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, s, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=L.dtype_of(cfg), device=device),
+                "v": torch.zeros(shape, dtype=L.dtype_of(cfg), device=device)}
+
+    def prefill(self, params: Params, batch: Batch, cache_len: int):
+        """tokens [B, T] -> (logits [B, V] after the last token, cache)."""
+        self._check_dense()
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = L.embed(params, tokens, cfg)
+        positions = _positions(tokens)
+        caches = []
+        for i in range(cfg.num_layers):
+            x, kv = decoder_layer_prefill(_layer(params["layers"], i), x, cfg,
+                                          positions, cache_len)
+            caches.append(kv)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = L.unembed(params, x[:, -1:], cfg)[:, 0]
+        return logits, _stack(caches)
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache,
+                    pos: int):
+        """tokens: [B, 1]; pos: absolute position (host int).  Returns
+        (logits [B, V], cache updated in place)."""
+        self._check_dense()
+        cfg = self.cfg
+        x = L.embed(params, tokens, cfg)
+        for i in range(cfg.num_layers):
+            x, _ = decoder_layer_decode(_layer(params["layers"], i), x, cfg,
+                                        _layer(cache, i), pos)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return L.unembed(params, x, cfg)[:, 0], cache
 
     # -- paged serving ----------------------------------------------------------
     @property
@@ -159,9 +248,168 @@ class DecoderLM:
         return L.unembed(params, x, self.cfg), pool
 
 
-def get_model(cfg: ModelConfig) -> DecoderLM:
-    if cfg.encoder_layers or cfg.block_pattern or cfg.rwkv:
+class HybridLM:
+    """RecurrentGemma: super-blocks of ``cfg.block_pattern`` temporal
+    blocks (RG-LRU recurrent or local attention, each followed by an MLP),
+    then ``cfg.tail_pattern``.  Served by the dense engine only."""
+
+    def __init__(self, cfg: ModelConfig):
+        if not cfg.block_pattern:
+            raise ValueError(f"{cfg.name}: HybridLM needs a block_pattern")
+        self.cfg = cfg
+        self.n_super = (cfg.num_layers - len(cfg.tail_pattern)) \
+            // len(cfg.block_pattern)
+
+    # -- params ---------------------------------------------------------------
+    def _init_block(self, init: L.Initializer, n, kind: str) -> Params:
+        cfg = self.cfg
+        sub = {"ln1": init.ones(n, cfg.d_model),
+               "ln2": init.ones(n, cfg.d_model)}
+        if kind == "rec":
+            sub["rec"] = R.init_recurrent_block(init, n, cfg)
+        else:
+            sub["attn"] = init.attention(n, cfg)
+        sub["mlp"] = init.mlp(n, cfg)
+        return sub
+
+    def init(self, seed: int, device: torch.device) -> Params:
+        """Random parameters from a seeded ``torch.Generator`` on
+        ``device``; ``lam`` is float32 as in the JAX init."""
+        cfg = self.cfg
+        init = L.Initializer(seed, device, L.dtype_of(cfg))
+        p: Params = init.embedding(cfg)
+        p["supers"] = {f"b{i}": self._init_block(init, self.n_super, kind)
+                       for i, kind in enumerate(cfg.block_pattern)}
+        p["tail"] = {f"t{i}": self._init_block(init, None, kind)
+                     for i, kind in enumerate(cfg.tail_pattern)}
+        p["final_norm"] = init.ones(None, cfg.d_model)
+        return p
+
+    def _blocks(self, params: Params, cache=None):
+        """(sub-params, kind, cache slot) of every block in order: views
+        into the stacked super-blocks, then the tail."""
+        cfg = self.cfg
+        for j in range(self.n_super):
+            for i, kind in enumerate(cfg.block_pattern):
+                c = None if cache is None \
+                    else _layer(cache["supers"][f"b{i}"], j)
+                yield _layer(params["supers"][f"b{i}"], j), kind, c
+        for i, kind in enumerate(cfg.tail_pattern):
+            c = None if cache is None else cache["tail"][f"t{i}"]
+            yield params["tail"][f"t{i}"], kind, c
+
+    # -- full sequence (scoring) -------------------------------------------------
+    def _block_train(self, sub: Params, kind: str, x, positions):
+        cfg = self.cfg
+        h = L.rms_norm(x, sub["ln1"], cfg.norm_eps)
+        if kind == "rec":
+            y, _ = R.recurrent_block(sub["rec"], h, cfg)
+        else:
+            y = L.attention_train(sub["attn"], h, cfg, positions,
+                                  window=cfg.window)
+        x = x + y
+        h = L.rms_norm(x, sub["ln2"], cfg.norm_eps)
+        return x + L.mlp(sub["mlp"], h, cfg)
+
+    def forward(self, params: Params, batch: Batch
+                ) -> Tuple[torch.Tensor, float]:
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = L.embed(params, tokens, cfg)
+        positions = _positions(tokens)
+        for sub, kind, _ in self._blocks(params):
+            x = self._block_train(sub, kind, x, positions)
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+
+    def logits(self, params: Params, batch: Batch) -> torch.Tensor:
+        x, _ = self.forward(params, batch)
+        return L.unembed(params, x, self.cfg)
+
+    # -- serving ---------------------------------------------------------------
+    def _empty_block_cache(self, kind: str, batch: int, cache_len: int,
+                           device):
+        cfg = self.cfg
+        dt = L.dtype_of(cfg)
+        if kind == "rec":
+            return R.init_recurrent_state(cfg, batch, dt, device)
+        s = min(cache_len, cfg.window or cache_len)
+        shape = (batch, cfg.num_kv_heads, s, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def init_cache(self, batch: int, cache_len: int, device):
+        cfg = self.cfg
+        sup = {f"b{i}": _stack([self._empty_block_cache(kind, batch,
+                                                        cache_len, device)]
+                               * self.n_super)
+               for i, kind in enumerate(cfg.block_pattern)}
+        tail = {f"t{i}": self._empty_block_cache(kind, batch, cache_len,
+                                                 device)
+                for i, kind in enumerate(cfg.tail_pattern)}
+        return {"supers": sup, "tail": tail}
+
+    def _block_prefill(self, sub: Params, kind: str, x, positions,
+                       cache_len: int):
+        cfg = self.cfg
+        h = L.rms_norm(x, sub["ln1"], cfg.norm_eps)
+        if kind == "rec":
+            y, new_cache = R.recurrent_block(sub["rec"], h, cfg)
+        else:
+            # the attention cache is min(cache_len, window) long, padded
+            # only when the prompt is shorter: a prompt longer than the
+            # window leaves a T-long cache that decodes unwindowed
+            y, new_cache = L.attention_prefill(
+                sub["attn"], h, cfg, positions,
+                min(cache_len, cfg.window or cache_len), window=cfg.window)
+        x = x + y
+        h = L.rms_norm(x, sub["ln2"], cfg.norm_eps)
+        return x + L.mlp(sub["mlp"], h, cfg), new_cache
+
+    def prefill(self, params: Params, batch: Batch, cache_len: int):
+        """tokens [B, T] -> (logits [B, V] after the last token, cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = L.embed(params, tokens, cfg)
+        positions = _positions(tokens)
+        per_block = []
+        for sub, kind, _ in self._blocks(params):
+            x, c = self._block_prefill(sub, kind, x, positions, cache_len)
+            per_block.append(c)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = L.unembed(params, x[:, -1:], cfg)[:, 0]
+        width = len(cfg.block_pattern)
+        sup = {f"b{i}": _stack(per_block[i:self.n_super * width:width])
+               for i in range(width)}
+        tail = {f"t{i}": c
+                for i, c in enumerate(per_block[self.n_super * width:])}
+        return logits, {"supers": sup, "tail": tail}
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache,
+                    pos: int):
+        """tokens: [B, 1]; pos: absolute position (host int).  Returns
+        (logits [B, V], cache updated in place)."""
+        cfg = self.cfg
+        x = L.embed(params, tokens, cfg)
+        for sub, kind, c in self._blocks(params, cache):
+            h = L.rms_norm(x, sub["ln1"], cfg.norm_eps)
+            if kind == "rec":
+                y, new = R.recurrent_block(sub["rec"], h, cfg, state=c)
+                for name, val in new.items():   # write through the view
+                    c[name].copy_(val)
+            else:
+                y, _ = L.attention_decode(sub["attn"], h, cfg, c, pos,
+                                          window=cfg.window)
+            x = x + y
+            h = L.rms_norm(x, sub["ln2"], cfg.norm_eps)
+            x = x + L.mlp(sub["mlp"], h, cfg)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return L.unembed(params, x, cfg)[:, 0], cache
+
+
+def get_model(cfg: ModelConfig):
+    if cfg.encoder_layers or cfg.rwkv:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder family is ported "
-            f"(see ROADMAP.md, Queue 1: other model families)")
+            f"{cfg.name}: encoder-decoder and RWKV models {_FAMILY_TODO}")
+    if cfg.block_pattern:
+        return HybridLM(cfg)
     return DecoderLM(cfg)

@@ -1,18 +1,18 @@
-"""Serving engine + the greedy paged scheduler, on PyTorch.
+"""Serving engine + the greedy schedulers, on PyTorch.
 
-A port of the JAX package's ``serving/engine.py``, paged path only:
-:class:`ServeConfig` (field for field), :class:`Engine` (model, params
-and the paged step functions) and :class:`PagedBatcher`, whose scheduling
-— fused prefill/decode steps under the ``max_step_tokens`` budget, the
-prefix cache with copy-on-write, n-gram speculative decode, swap
-preemption with the SLO controller, shedding and stats — is the JAX
-batcher's, line for line, for greedy requests.
+A port of the JAX package's ``serving/engine.py``: :class:`ServeConfig`
+(field for field); :class:`Engine` (model, params, dense greedy
+generation, scoring and the paged step functions); the dense
+:class:`ContinuousBatcher`, which merges requests of one prompt length
+into one prefill + decode run; and :class:`PagedBatcher`, whose
+scheduling — fused prefill/decode steps under the ``max_step_tokens``
+budget, the prefix cache with copy-on-write, n-gram speculative decode,
+swap preemption with the SLO controller, shedding, the dense fallback for
+requests too large for the pool, and stats — is the JAX batcher's, line
+for line, for greedy requests.
 
-Not in this slice, each with a clear error instead of a crash: sampled
-requests (temperature > 0) and ``n > 1`` candidates raise
-``NotImplementedError`` at submit, and a request too large for the paged
-pool, which the JAX batcher hands to its dense engine, is shed with a
-:class:`ShedError` that names the missing dense engine.
+Not in this slice: sampled requests (temperature > 0) and ``n > 1``
+candidates raise ``NotImplementedError`` at submit, in both batchers.
 """
 from __future__ import annotations
 
@@ -31,13 +31,13 @@ from ..configs.base import ModelConfig
 from ..core.device import torch_device
 from ..models import get_model
 from .kv_cache import CacheOOM, PagedKVCache, block_keys
-from .sampling import GenerationParams, SamplingParams
+from .sampling import GREEDY, GenerationParams, SamplingParams
 from .spec import ngram_propose
 
 _log = logging.getLogger(__name__)
 
-_DENSE_TODO = ("the dense engine is not ported yet (ROADMAP.md, Queue 1: "
-               "dense engine)")
+_N_TODO = ("parallel candidates are not ported yet: they fork sampled rows "
+           "(ROADMAP.md, Queue 1: sampling)")
 
 
 @dataclasses.dataclass
@@ -51,8 +51,8 @@ class ServeConfig:
     top_k: int = 0              # 0 = no top-k filter
     top_p: float = 1.0          # 1.0 = no nucleus (top-p) filter
     seed: int = 0               # base PRNG seed for sampled requests
-    # paged KV cache; paged=False asks for the dense ContinuousBatcher,
-    # which is not ported yet
+    # paged KV cache; paged=True routes supported model families through
+    # PagedBatcher, others (and paged=False) use the dense ContinuousBatcher
     paged: bool = True
     block_size: int = 16        # tokens per KV block (64B-alignment rounds up)
     prefill_chunk: int = 32     # prompt tokens prefilled per chunked step
@@ -87,7 +87,8 @@ class ServeConfig:
 
 
 class Engine:
-    """One model on one device: parameters plus the paged step functions.
+    """One model on one device: parameters, dense greedy generation and
+    scoring, and the paged step functions.
 
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     pass ``device="cpu"`` to run the plain PyTorch path.  ``params``, when
@@ -106,6 +107,7 @@ class Engine:
         if params is None:
             params = self.model.init(seed, self.device)
         self.params = params
+        self.stats = {"prefills": 0, "decode_steps": 0, "tokens_out": 0}
 
     @property
     def supports_paged(self) -> bool:
@@ -118,6 +120,80 @@ class Engine:
     def paged_verify_fn(self):
         """The speculative verify step: logits at every position."""
         return self.model.paged_step_verify
+
+    # -- generation --------------------------------------------------------------
+    def generate(self, tokens: np.ndarray, *,
+                 max_new_tokens: Optional[int] = None,
+                 stop_token: Optional[int] = None, deadline=None,
+                 start_from: int = 0, on_token=None,
+                 sampling: Optional[SamplingParams] = None) -> np.ndarray:
+        """Greedy generation from a [B, T] prompt: one dense prefill into a
+        ``cache_len`` cache, then one decode step per token.  Returns
+        [B, new] int32.
+
+        ``start_from``: number of already-delivered tokens to skip (the
+        stream-cursor resume path).  ``on_token(i, tok)`` sees each token
+        column as it is emitted.  ``sampling`` is accepted for interface
+        parity: the port's :class:`SamplingParams` are greedy only.
+        """
+        del sampling
+        sc = self.serve
+        maxn = sc.max_new_tokens if max_new_tokens is None else max_new_tokens
+        tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
+        b, t = tokens.shape
+        logits, cache = self.model.prefill(self.params,
+                                           self._prefill_batch(tokens),
+                                           sc.cache_len)
+        self.stats["prefills"] += 1
+        out: List[np.ndarray] = []
+        pos = t
+        next_tok = self._pick(logits)
+        for i in range(maxn):
+            if deadline is not None and deadline.expired():
+                break
+            if i >= start_from:
+                out.append(next_tok)
+                if on_token is not None:
+                    on_token(i, next_tok)
+            logits, cache = self.model.decode_step(
+                self.params, torch.from_numpy(next_tok).to(self.device),
+                cache, pos)
+            self.stats["decode_steps"] += 1
+            pos += 1
+            next_tok = self._pick(logits)
+            if stop_token is not None and bool((next_tok == stop_token).all()):
+                break
+        self.stats["tokens_out"] += sum(o.shape[1] for o in out) * b
+        return np.concatenate(out, axis=1) if out else \
+            np.zeros((b, 0), np.int32)
+
+    @staticmethod
+    def _pick(logits: torch.Tensor) -> np.ndarray:
+        """Next token column [B, 1]: greedy argmax on the device (the first
+        of equal maxima, as ``jnp.argmax``), only [B] ids to the host."""
+        return logits.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
+
+    def _prefill_batch(self, tokens: np.ndarray) -> Dict[str, torch.Tensor]:
+        if self.cfg.input_kind != "tokens":
+            raise NotImplementedError(
+                f"{self.cfg.name}: {self.cfg.input_kind} inputs are not "
+                f"ported yet (ROADMAP.md, Queue 1: other model families)")
+        return {"tokens": torch.from_numpy(
+            np.ascontiguousarray(tokens, dtype=np.int32)).to(self.device)}
+
+    # -- scoring (the ScorePage body: Infer -> ScorePage chains) --------------
+    def score(self, tokens: np.ndarray) -> np.ndarray:
+        """Mean log-prob of each sequence under the model.  [B, T] -> [B]
+        float32: ``log_softmax`` in float32 over the logits of
+        ``tokens[:, :-1]``, gathered at ``tokens[:, 1:]``, averaged over
+        T - 1 on the device; only the [B] means come back."""
+        tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
+        toks = self._prefill_batch(tokens)["tokens"]
+        logits = self.model.logits(self.params, {"tokens": toks[:, :-1]})
+        lf = torch.log_softmax(logits.float(), dim=-1)
+        del logits
+        picked = torch.gather(lf, -1, toks[:, 1:].long()[..., None])[..., 0]
+        return picked.mean(-1).cpu().numpy()
 
 
 class ShedError(RuntimeError):
@@ -138,6 +214,266 @@ def _logits_to_host(out: torch.Tensor) -> np.ndarray:
         bits = out.contiguous().view(torch.int16).cpu().numpy()
         return (bits.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
     return out.float().cpu().numpy()
+
+
+@dataclasses.dataclass(eq=False)   # identity semantics: queues/slot lists
+class _Pending:                    # look these up with `in` / `.remove()`
+    """One admitted request group: [B, T] prompt rows awaiting assembly."""
+
+    tokens: np.ndarray
+    max_new_tokens: int
+    stop_token: Optional[int]
+    deadline: Optional[Any]
+    future: _cf.Future
+    sampling: SamplingParams = GREEDY
+    enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
+    cancelled: bool = False     # caller gone (connection died): stop paying
+
+    @property
+    def rows(self) -> int:
+        return self.tokens.shape[0]
+
+    @property
+    def seq_len(self) -> int:
+        return self.tokens.shape[1]
+
+    def expired(self) -> bool:
+        return self.cancelled or (
+            self.deadline is not None and self.deadline.expired())
+
+
+class ContinuousBatcher:
+    """Admission queue + batch assembly in front of a single Engine (the
+    dense-cache scheduler, greedy).
+
+    Requests are submitted from handler threads and resolved by one worker
+    thread.  Assembly greedily merges queued requests that share a prompt
+    length and stop token up to ``max_batch`` rows, waiting at most
+    ``window_s`` for stragglers once the first request is in hand, and
+    runs the group as ONE :meth:`Engine.generate`.  Deadlines shed work on
+    submit (full queue or already expired) and again at assembly.  It
+    serves model families without paged-KV support (the hybrid model) and
+    ``ServeConfig(paged=False)``.
+    """
+
+    def __init__(self, engine: Engine, *, max_batch: Optional[int] = None,
+                 max_queue: int = 64, window_s: float = 0.005):
+        self.engine = engine
+        self.max_batch = max_batch or engine.serve.max_batch
+        self.max_queue = max_queue
+        self.window_s = window_s
+        self._queue: collections.deque = collections.deque()
+        self._cond = threading.Condition()
+        self._closed = False  # guarded by _cond
+        # the JAX batcher's key set; sampled_requests stays 0 until
+        # sampling lands
+        self.stats = {"requests": 0, "rows": 0, "batches": 0,
+                      "batched_rows": 0, "shed": 0, "worker_errors": 0,
+                      "cancelled": 0, "sampled_requests": 0}
+        self._worker_error_logged = False
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="serve-batcher")
+        self._worker.start()
+
+    # -- admission ----------------------------------------------------------
+    def submit(self, tokens: np.ndarray, *,
+               params: Optional[GenerationParams] = None,
+               max_new_tokens: Optional[int] = None,
+               stop_token: Optional[int] = None,
+               deadline=None, priority: Optional[int] = None,
+               ttft_slo_ms: Optional[float] = None,
+               tpot_slo_ms: Optional[float] = None,
+               sampling: Optional[SamplingParams] = None,
+               n: int = 1) -> _cf.Future:
+        """Queue a [B, T] (or [T]) prompt; resolves to [B, new] int32.
+
+        ``params`` supplies every per-request field at once.
+        ``priority``/``ttft_slo_ms``/``tpot_slo_ms`` are accepted for
+        interface parity with :meth:`PagedBatcher.submit` and ignored: the
+        dense scheduler has no preemption tier.  A sampled request
+        (temperature > 0) or ``n > 1`` raises ``NotImplementedError`` here,
+        in the caller's thread.
+        """
+        if params is not None:
+            params.validate()
+            max_new_tokens = params.max_new_tokens
+            stop_token = params.stop_token
+            sampling = params.sampling(self.engine.serve)
+            n = params.n
+        del priority, ttft_slo_ms, tpot_slo_ms
+        if int(n) > 1:
+            raise NotImplementedError(f"n={n} {_N_TODO}")
+        sp = _config_sampling(self.engine.serve) if sampling is None \
+            else sampling
+        tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
+        maxn = self.engine.serve.max_new_tokens if max_new_tokens is None \
+            else max_new_tokens  # explicit 0 = prefill-only, not the default
+        p = _Pending(tokens, maxn, stop_token, deadline, _cf.Future(),
+                     sampling=sp)
+        with self._cond:
+            if self._closed:
+                self.stats["shed"] += 1
+                p.future.set_exception(ShedError("batcher closed"))
+                return p.future
+            if p.expired():
+                self.stats["shed"] += 1
+                p.future.set_exception(
+                    ShedError("deadline expired before admission"))
+                return p.future
+            if len(self._queue) >= self.max_queue:
+                self.stats["shed"] += 1
+                p.future.set_exception(ShedError("admission queue full"))
+                return p.future
+            self._queue.append(p)
+            self.stats["requests"] += 1
+            self.stats["rows"] += p.rows
+            self._cond.notify()
+        return p.future
+
+    def generate(self, tokens: np.ndarray, **kw) -> np.ndarray:
+        """Blocking convenience wrapper around :meth:`submit`."""
+        return self.submit(tokens, **kw).result()
+
+    def cancel(self, fut: _cf.Future) -> bool:
+        """Drop the queued request owning ``fut``; a group already running
+        completes (its result is discarded).  Returns True if found."""
+        with self._cond:
+            for p in self._queue:
+                if p.future is fut:
+                    p.cancelled = True
+                    self.stats["cancelled"] += 1
+                    self._cond.notify_all()
+                    return True
+        return False
+
+    # -- assembly -----------------------------------------------------------
+    def _take_group(self) -> Optional[_Pending]:
+        """Pop the first live request, shedding expired ones in place;
+        None once the batcher is closed and drained."""
+        with self._cond:
+            while True:
+                while self._queue:
+                    p = self._queue.popleft()
+                    if p.expired():
+                        self.stats["shed"] += 1
+                        p.future.set_exception(
+                            ShedError("deadline expired in queue"))
+                        continue
+                    return p
+                if self._closed:
+                    return None
+                self._cond.wait()
+
+    def _take_compatible(self, head: _Pending) -> List[_Pending]:
+        """Merge queued requests matching ``head`` up to max_batch rows."""
+        group = [head]
+        rows = head.rows
+        cutoff = time.monotonic() + self.window_s
+        while rows < self.max_batch:
+            with self._cond:
+                found = None
+                shed = False
+                for p in self._queue:
+                    if p.expired():
+                        self._queue.remove(p)
+                        self.stats["shed"] += 1
+                        p.future.set_exception(
+                            ShedError("deadline expired in queue"))
+                        shed = True
+                        break  # deque mutated mid-iteration; rescan
+                    if p.seq_len == head.seq_len \
+                            and p.stop_token == head.stop_token \
+                            and head.sampling.greedy and p.sampling.greedy \
+                            and rows + p.rows <= self.max_batch:
+                        found = p
+                        break
+                if found is not None:
+                    self._queue.remove(found)
+                    group.append(found)
+                    rows += found.rows
+                    continue
+                if shed:
+                    continue  # don't burn the window waiting; rescan now
+                remaining = cutoff - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(remaining)
+        return group
+
+    def _run(self) -> None:
+        while True:
+            head = self._take_group()
+            if head is None:
+                return
+            group = self._take_compatible(head)
+            try:
+                self._execute(group)
+            except Exception:  # noqa: BLE001 - the worker must survive
+                # _execute fails futures itself; anything escaping here is
+                # counted and the first logged
+                self.stats["worker_errors"] += 1
+                if not self._worker_error_logged:
+                    self._worker_error_logged = True
+                    _log.exception(
+                        "ContinuousBatcher worker step raised; continuing "
+                        "(further escapes counted in stats['worker_errors'])")
+                continue
+
+    def _execute(self, group: List[_Pending]) -> None:
+        tokens = np.concatenate([p.tokens for p in group], axis=0) \
+            if len(group) > 1 else group[0].tokens
+        maxn = max(p.max_new_tokens for p in group)
+        # run to the LATEST finite member deadline (the one with the most
+        # time remaining): every member gets whatever prefix was generated
+        # by then
+        with_deadline = [p.deadline for p in group if p.deadline is not None]
+        deadline = max(with_deadline, key=lambda d: d.remaining()) \
+            if with_deadline else None
+        try:
+            out = self.engine.generate(tokens, max_new_tokens=maxn,
+                                       stop_token=group[0].stop_token,
+                                       deadline=deadline,
+                                       sampling=group[0].sampling)
+        except Exception as e:  # noqa: BLE001 - fail every member, keep serving
+            for p in group:
+                if not p.future.done():
+                    p.future.set_exception(e)
+            return
+        self.stats["batches"] += 1
+        self.stats["batched_rows"] += tokens.shape[0]
+        row = 0
+        for p in group:
+            res = out[row:row + p.rows, :min(p.max_new_tokens, out.shape[1])]
+            row += p.rows
+            if p.stop_token is not None:
+                # re-apply the request's own stop rule: merged batches run
+                # longer than the request would alone
+                hits = (res == p.stop_token).all(axis=0)
+                if hits.any():
+                    res = res[:, :int(np.argmax(hits))]
+            if not p.future.done():  # racing cancel() must not kill us
+                p.future.set_result(np.ascontiguousarray(res))
+
+    # -- lifecycle ----------------------------------------------------------
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        self._worker.join(timeout=5.0)
+        with self._cond:
+            while self._queue:
+                p = self._queue.popleft()
+                p.future.set_exception(ShedError("batcher closed"))
+
+    def mean_batch_rows(self) -> float:
+        b = self.stats["batches"]
+        return self.stats["batched_rows"] / b if b else 0.0
+
+    def collect_stats(self) -> Dict[str, float]:
+        """Complete snapshot: every counter plus live queue depth."""
+        out: Dict[str, float] = dict(self.stats)
+        out["queued_requests"] = len(self._queue)
+        return out
 
 
 @dataclasses.dataclass(eq=False)   # identity semantics: field-wise eq would
@@ -273,8 +609,8 @@ class PagedBatcher:
         self._step_budget_cap = max(self.max_batch * self.prefill_chunk,
                                     self.max_step_tokens)
         # the JAX batcher's full key set, so snapshots of the two packages
-        # line up; forks, spec_resamples, sampled_requests and
-        # dense_fallbacks stay 0 until sampling and the dense engine land
+        # line up; forks, spec_resamples and sampled_requests stay 0 until
+        # sampling lands
         self.stats = {"requests": 0, "rows": 0, "shed": 0, "decode_steps": 0,
                       "batched_rows": 0, "prefill_chunks": 0,
                       "mixed_steps": 0, "admitted_in_flight": 0,
@@ -321,9 +657,7 @@ class PagedBatcher:
             sampling = params.sampling(self.engine.serve)
             n = params.n
         if int(n) > 1:
-            raise NotImplementedError(
-                f"n={n} parallel candidates are not ported yet: they fork "
-                f"sampled rows (ROADMAP.md, Queue 1: sampling)")
+            raise NotImplementedError(f"n={n} {_N_TODO}")
         if sampling is None:   # resolving the defaults checks them
             _config_sampling(self.engine.serve)
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
@@ -407,13 +741,19 @@ class PagedBatcher:
                         "stats['worker_errors'])")
                 continue
 
-    def _take_admittable(self) -> Optional[_PagedReq]:
-        """The next request to install, FIFO with skip-ahead: a queued
-        request that fits the free slots and blocks now is taken even if
-        an earlier, larger one is still waiting."""
+    def _take_admittable(self) -> Tuple[Optional[_PagedReq],
+                                        Optional[_PagedReq]]:
+        """(request to install, request to run dense), at most one each.
+
+        FIFO with skip-ahead: a queued request that fits the free slots
+        and blocks now is taken even if an earlier, larger one is still
+        waiting.  A request the paged budget can never hold (too many
+        rows, or prompt + generation past the block table) goes to the
+        dense engine, as in the JAX batcher.
+        """
         with self._cond:
             if not self._queue:
-                return None
+                return None, None
             free_slots = self.max_batch - sum(
                 1 for s in self._slots if s is not None)
             free_budget = self.cache.num_free_blocks + self.cache.reclaimable
@@ -427,14 +767,8 @@ class PagedBatcher:
                 if p.rows > self.max_batch \
                         or p.seq_len + max(p.max_new_tokens, 0) \
                         > self.cache.layout.tokens:
-                    # the JAX batcher serves this on its dense engine
                     self._queue.remove(p)
-                    self.stats["shed"] += 1
-                    p.future.set_exception(ShedError(
-                        f"request ({p.rows} rows, {p.seq_len} + "
-                        f"{p.max_new_tokens} tokens) exceeds the paged "
-                        f"budget and {_DENSE_TODO}"))
-                    continue
+                    return None, p
                 need = self._blocks_need(p)
                 if need > self.cache.allocator.capacity:
                     self._queue.remove(p)
@@ -445,8 +779,23 @@ class PagedBatcher:
                     continue
                 if p.rows <= free_slots and need <= free_budget:
                     self._queue.remove(p)
-                    return p
-            return None
+                    return p, None
+            return None, None
+
+    def _run_dense(self, p: _PagedReq) -> None:
+        """Oversized request: the dense engine inline (rare escape hatch)."""
+        self.stats["dense_fallbacks"] += 1
+        try:
+            out = self.engine.generate(p.tokens,
+                                       max_new_tokens=p.max_new_tokens,
+                                       stop_token=p.stop_token,
+                                       deadline=p.deadline)
+        except Exception as e:  # noqa: BLE001 - fail this request only
+            if not p.future.done():
+                p.future.set_exception(e)
+            return
+        if not p.future.done():
+            p.future.set_result(out)
 
     def _blocks_need(self, p: _PagedReq) -> int:
         """Worst-case device blocks ``p`` needs: every row pays its full
@@ -458,7 +807,10 @@ class PagedBatcher:
         if self.swap:
             self._sweep_preempted()
         while True:
-            req = self._take_admittable()
+            req, dense = self._take_admittable()
+            if dense is not None:
+                self._run_dense(dense)
+                continue
             if req is None and self.swap:
                 req = self._admit_by_preemption()
             if req is None:
@@ -554,7 +906,7 @@ class PagedBatcher:
                 try:
                     need = self._blocks_need(p)
                 except ValueError:
-                    continue   # oversized: _take_admittable sheds it
+                    continue   # oversized: _take_admittable runs it dense
                 if need > self.cache.allocator.capacity:
                     continue   # unsatisfiable; _take_admittable sheds it
                 if best is None or p.priority > best[0].priority:

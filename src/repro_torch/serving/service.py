@@ -1,13 +1,15 @@
-"""The page-level inference handler, called in process.
+"""The page-level inference handlers, called in process.
 
-The JAX package serves ``Infer`` over its Bebop RPC stack
-(``serving/service.py``).  The RPC stack is not ported yet; this module
-keeps the page codecs and the body of the ``Infer`` handler —
-``_admit_tokens`` (header checks, device placement, kernel decode) plus
-submit-and-await on the paged batcher — as :meth:`InferenceImpl.infer`,
-which takes a prompt page and returns what the handler would put in its
-``InferResponse``: ``{"batch", "new_tokens", "page"}``.  The response page
-is byte-identical to the JAX handler's for the same tokens.
+The JAX package serves ``Infer`` and ``ScorePage`` over its Bebop RPC
+stack (``serving/service.py``).  The RPC stack is not ported yet; this
+module keeps the page codecs and the bodies of the two handlers —
+``_admit_tokens`` (header checks, device placement, kernel decode), then
+submit-and-await on the batcher, or the engine's score — as
+:meth:`InferenceImpl.infer`, which returns what the handler would put in
+its ``InferResponse`` (``{"batch", "new_tokens", "page"}``), and
+:meth:`InferenceImpl.score_page`, which returns the ``ScoreResponse``
+(``{"scores"}``).  The response page is byte-identical to the JAX
+handler's for the same tokens.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 from ..core import pages
 from ..core import types as T
 from ..core.rpc import RpcError, Status
-from .engine import Engine, PagedBatcher, ShedError
+from .engine import ContinuousBatcher, Engine, PagedBatcher, ShedError
 from .ingest import PageIngest
 from .sampling import GenerationParams
 
@@ -70,11 +72,13 @@ def decode_token_page(buf) -> np.ndarray:
 
 
 class InferenceImpl:
-    """The page-level ``Infer`` path over an :class:`Engine`.
+    """The page-level ``Infer`` and ``ScorePage`` paths over an
+    :class:`Engine`.
 
     Owns a :class:`PageIngest` on the engine's device (which defaults to
-    the card) and a :class:`PagedBatcher`.  ``ServeConfig(paged=False)``
-    asks for the dense scheduler, which is not ported yet, and raises.
+    the card) and a batcher: the :class:`PagedBatcher` when the serve
+    config asks for paging and the model family supports it, else the
+    dense :class:`ContinuousBatcher`, as in JAX.
     """
 
     # Distinct prompt widths one service plans decodes for: the width is
@@ -88,12 +92,9 @@ class InferenceImpl:
         self.engine = engine
         self.ingest = ingest or PageIngest(device=engine.device)
         if batcher is None:
-            if not (engine.serve.paged and engine.supports_paged):
-                raise NotImplementedError(
-                    "only the paged scheduler is ported; the dense "
-                    "ContinuousBatcher is not (ROADMAP.md, Queue 1: dense "
-                    "engine)")
-            batcher = PagedBatcher(engine)
+            batcher = PagedBatcher(engine) \
+                if engine.serve.paged and engine.supports_paged \
+                else ContinuousBatcher(engine)
         self.batcher = batcher
         self._plan_lock = threading.Lock()
         self._known_seqs: Dict[int, bool] = {}
@@ -171,6 +172,16 @@ class InferenceImpl:
                                               deadline=deadline), deadline)
         return {"batch": out.shape[0], "new_tokens": out.shape[1],
                 "page": encode_gen_page(out) if out.shape[1] else b""}
+
+    def score_page(self, page: bytes, *, deadline=None) -> dict:
+        """Mean log-prob of every token row of ``page`` (the ``ScorePage``
+        body: it chains after ``Infer``).  Returns ``{"scores": float32
+        [B]}``; fewer than 2 tokens a row is ``INVALID_ARGUMENT``."""
+        tokens = self._admit_tokens(page, deadline).astype(np.int32)
+        if tokens.shape[1] < 2:
+            raise RpcError(Status.INVALID_ARGUMENT,
+                           "scoring needs at least 2 tokens per row")
+        return {"scores": self.engine.score(tokens).astype(np.float32)}
 
     def close(self) -> None:
         self.batcher.close()

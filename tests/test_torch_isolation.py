@@ -21,7 +21,9 @@ import repro_torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import bebop_decode as bd
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.serving import Engine, PageIngest, ServeConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,3 +138,38 @@ def test_launch_counters_do_not_move_on_the_plain_path():
     pa.paged_attention(q, pool, pool, tables, torch.tensor([3]))
     assert (bd.decode_columns.launches, pa.paged_attention.launches,
             pa.paged_prefill_attention.launches) == before
+
+
+def test_dense_kernels_raise_for_non_cpu_tensors(no_kernel_library):
+    q = torch.empty((1, 4, 8, 128), device="meta")
+    kv = torch.empty((1, 2, 8, 128), device="meta")
+    with pytest.raises(build.KernelBuildError, match="nvcc"):
+        fa.flash_attention(q, kv, kv)
+    x = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(build.KernelBuildError, match="nvcc"):
+        rg.rglru_scan(x, x)
+
+
+def test_dense_kernel_counters_do_not_move_on_the_plain_path():
+    before = (fa.flash_attention.launches, rg.rglru_scan.launches)
+    fa.flash_attention(torch.zeros((1, 2, 3, 8)), torch.zeros((1, 1, 3, 8)),
+                       torch.zeros((1, 1, 3, 8)))
+    rg.rglru_scan(torch.zeros((1, 3, 4)), torch.zeros((1, 3, 4)))
+    assert (fa.flash_attention.launches, rg.rglru_scan.launches) == before
+
+
+def test_dense_entry_points_default_to_cuda(monkeypatch):
+    """The hybrid model's engine and the dense batcher's service follow
+    the same device rule as the paged path."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, ServeConfig())
+    from repro_torch.serving import ContinuousBatcher, InferenceImpl
+    impl = InferenceImpl(Engine(cfg, ServeConfig(cache_len=32),
+                                device="cpu"))
+    try:
+        assert isinstance(impl.batcher, ContinuousBatcher)
+        assert impl.ingest.device.type == "cpu"
+    finally:
+        impl.close()

@@ -11,7 +11,8 @@ JAX oracles in ``kernels/ref.py``) on the same numpy inputs:
   row, which both kernels answer with zeros.
 
 The CUDA cases compare each kernel with its plain version on the card and
-skip where there is none.
+skip where there is none (``tests/test_torch_dense.py`` holds the plain
+versions of the flash attention and RG-LRU kernels against JAX).
 """
 import threading
 
@@ -27,8 +28,10 @@ from repro.kernels import ref as jref
 
 from repro_torch.kernels import bebop_decode as bd
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rglru_scan as rg
 
 ATOL, RTOL = 3e-5, 1e-4
 
@@ -247,3 +250,52 @@ def test_cuda_paged_kernels_match_plain(cuda, dtype, atol, rtol, t):
     want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, ATOL, RTOL),
+    (torch.bfloat16, 2e-2, 2e-2),
+])
+@pytest.mark.parametrize("hq,hkv,d,tq,s,causal,window,q_offset", [
+    (12, 2, 128, 97, 97, True, None, 0),      # qwen2-1.5b, ragged prefill
+    (12, 2, 128, 33, 150, True, None, 117),   # offset queries
+    (12, 2, 128, 40, 70, False, None, 0),     # non-causal
+    (16, 1, 256, 300, 300, True, 64, 0),      # recurrentgemma, window
+    (16, 1, 256, 4, 10, True, 8, 14),         # rows with no valid key
+])
+def test_cuda_flash_kernel_matches_plain(cuda, dtype, atol, rtol, hq, hkv, d,
+                                         tq, s, causal, window, q_offset):
+    rng = np.random.default_rng(tq + s)
+    q = rng.standard_normal((2, hq, tq, d)).astype(np.float32)
+    k = rng.standard_normal((2, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((2, hkv, s, d)).astype(np.float32)
+    q, k, v = [x.to(cuda).to(dtype) for x in _t(q, k, v)]
+    before = fa.flash_attention.launches
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    empty = (torch.arange(tq) + q_offset - (s - 1)) >= (window or s + tq)
+    assert not got[:, :, empty.to(cuda)].any()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    # the kernel rounds the multiply and the add apart, as the plain loop
+    (torch.float32, 1e-6, 1e-5),
+    (torch.bfloat16, 2e-2, 2e-2),
+])
+@pytest.mark.parametrize("b,t,d", [(2, 300, 4096), (1, 1, 4096), (3, 17, 100)])
+def test_cuda_rglru_kernel_matches_plain(cuda, dtype, atol, rtol, b, t, d):
+    rng = np.random.default_rng(t)
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    a = rng.random((b, t, d)).astype(np.float32)
+    x, a = [y.to(cuda).to(dtype) for y in _t(x, a)]
+    before = rg.rglru_scan.launches
+    h, hf = rg.rglru_scan(x, a)
+    assert rg.rglru_scan.launches == before + 1
+    h2, hf2 = rg.rglru_scan_plain(x, a)
+    assert h.dtype == dtype and hf.dtype == torch.float32
+    torch.testing.assert_close(h.float(), h2.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(hf, hf2, atol=atol, rtol=rtol)

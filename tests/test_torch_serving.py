@@ -6,7 +6,8 @@
 * ``PagedBatcher`` given the same prompts and ``ServeConfig`` emits the
   same greedy tokens as the JAX ``PagedBatcher``, with the same scheduler
   stats (prefix hits, copy-on-write copies, speculative acceptance,
-  preemptions, ...), including a pool small enough to force preemption.
+  preemptions, ...), including a pool small enough to force preemption,
+  and serves a request past the paged budget on the dense engine.
   Requests are queued before the worker sees any of them, so both
   schedulers make the same decisions.  A token split counts as a fault
   only where the JAX reference's top-2 logit margin exceeds ``MARGIN``
@@ -217,22 +218,33 @@ def test_paged_batcher_preemption_matches_jax(engines, fused):
 
 
 def test_deferred_features_raise_without_killing_the_worker(engines):
-    _, engine = engines
+    """Sampling and ``n > 1`` raise at submit; a request past the paged
+    budget (90 + 30 tokens at cache_len 96: its decode writes clamp into
+    the last cache slot, as in JAX) is served by the dense engine, with
+    the JAX batcher's tokens and ``dense_fallbacks``."""
+    jengine, engine = engines
     pb = PagedBatcher(engine, max_batch=2)
+    jb = JaxPagedBatcher(jengine, max_batch=2)
     try:
         prompt = np.arange(6, dtype=np.int32)
         with pytest.raises(NotImplementedError, match="threefry"):
             pb.submit(prompt, params=GenerationParams(temperature=0.7))
         with pytest.raises(NotImplementedError, match="n=3"):
             pb.submit(prompt, n=3)
-        fut = pb.submit(np.zeros((1, 90), np.int32), max_new_tokens=30)
-        with pytest.raises(ShedError, match="dense engine"):
-            fut.result(timeout=60)
+        big = np.random.default_rng(2).integers(0, 512, (1, 90)).astype(
+            np.int32)
+        got = pb.submit(big, max_new_tokens=30).result(timeout=120)
+        want = jb.submit(big, max_new_tokens=30).result(timeout=120)
+        assert got.shape == (1, 30)
+        np.testing.assert_array_equal(got, want)
+        assert pb.stats["dense_fallbacks"] == jb.stats["dense_fallbacks"] == 1
+        assert pb.stats["shed"] == jb.stats["shed"] == 0
         out = pb.generate(prompt, max_new_tokens=3)
         assert out.shape == (1, 3)
         assert pb.stats["worker_errors"] == 0
     finally:
         pb.close()
+        jb.close()
 
 
 class _Expired:
