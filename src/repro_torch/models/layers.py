@@ -48,11 +48,10 @@ class Initializer:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 
-    def normal(self, shape: Sequence[int], std: float,
-               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def normal(self, shape: Sequence[int], std: float) -> torch.Tensor:
         return (torch.randn(tuple(shape), generator=self.gen,
                             device=self.device, dtype=torch.float32)
-                * std).to(dtype or self.dtype)
+                * std).to(self.dtype)
 
     def stacked(self, n: Optional[int], draw) -> torch.Tensor:
         """``draw()`` once (``n`` None) or ``n`` times into one stacked
