@@ -31,7 +31,7 @@ from ..configs.base import ModelConfig
 from ..core.device import torch_device
 from ..models import get_model
 from .kv_cache import CacheOOM, PagedKVCache, block_keys
-from .sampling import GREEDY, GenerationParams, SamplingParams
+from .sampling import GenerationParams, SamplingParams
 from .spec import ngram_propose
 
 _log = logging.getLogger(__name__)
@@ -124,19 +124,12 @@ class Engine:
     # -- generation --------------------------------------------------------------
     def generate(self, tokens: np.ndarray, *,
                  max_new_tokens: Optional[int] = None,
-                 stop_token: Optional[int] = None, deadline=None,
-                 start_from: int = 0, on_token=None,
-                 sampling: Optional[SamplingParams] = None) -> np.ndarray:
+                 stop_token: Optional[int] = None,
+                 deadline=None) -> np.ndarray:
         """Greedy generation from a [B, T] prompt: one dense prefill into a
         ``cache_len`` cache, then one decode step per token.  Returns
         [B, new] int32.
-
-        ``start_from``: number of already-delivered tokens to skip (the
-        stream-cursor resume path).  ``on_token(i, tok)`` sees each token
-        column as it is emitted.  ``sampling`` is accepted for interface
-        parity: the port's :class:`SamplingParams` are greedy only.
         """
-        del sampling
         sc = self.serve
         maxn = sc.max_new_tokens if max_new_tokens is None else max_new_tokens
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
@@ -148,13 +141,10 @@ class Engine:
         out: List[np.ndarray] = []
         pos = t
         next_tok = self._pick(logits)
-        for i in range(maxn):
+        for _ in range(maxn):
             if deadline is not None and deadline.expired():
                 break
-            if i >= start_from:
-                out.append(next_tok)
-                if on_token is not None:
-                    on_token(i, next_tok)
+            out.append(next_tok)
             logits, cache = self.model.decode_step(
                 self.params, torch.from_numpy(next_tok).to(self.device),
                 cache, pos)
@@ -163,7 +153,7 @@ class Engine:
             next_tok = self._pick(logits)
             if stop_token is not None and bool((next_tok == stop_token).all()):
                 break
-        self.stats["tokens_out"] += sum(o.shape[1] for o in out) * b
+        self.stats["tokens_out"] += len(out) * b
         return np.concatenate(out, axis=1) if out else \
             np.zeros((b, 0), np.int32)
 
@@ -225,7 +215,6 @@ class _Pending:                    # look these up with `in` / `.remove()`
     stop_token: Optional[int]
     deadline: Optional[Any]
     future: _cf.Future
-    sampling: SamplingParams = GREEDY
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
     cancelled: bool = False     # caller gone (connection died): stop paying
 
@@ -303,13 +292,12 @@ class ContinuousBatcher:
         del priority, ttft_slo_ms, tpot_slo_ms
         if int(n) > 1:
             raise NotImplementedError(f"n={n} {_N_TODO}")
-        sp = _config_sampling(self.engine.serve) if sampling is None \
-            else sampling
+        if sampling is None:   # resolving the defaults checks them
+            _config_sampling(self.engine.serve)
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
         maxn = self.engine.serve.max_new_tokens if max_new_tokens is None \
             else max_new_tokens  # explicit 0 = prefill-only, not the default
-        p = _Pending(tokens, maxn, stop_token, deadline, _cf.Future(),
-                     sampling=sp)
+        p = _Pending(tokens, maxn, stop_token, deadline, _cf.Future())
         with self._cond:
             if self._closed:
                 self.stats["shed"] += 1
@@ -383,7 +371,6 @@ class ContinuousBatcher:
                         break  # deque mutated mid-iteration; rescan
                     if p.seq_len == head.seq_len \
                             and p.stop_token == head.stop_token \
-                            and head.sampling.greedy and p.sampling.greedy \
                             and rows + p.rows <= self.max_batch:
                         found = p
                         break
@@ -432,8 +419,7 @@ class ContinuousBatcher:
         try:
             out = self.engine.generate(tokens, max_new_tokens=maxn,
                                        stop_token=group[0].stop_token,
-                                       deadline=deadline,
-                                       sampling=group[0].sampling)
+                                       deadline=deadline)
         except Exception as e:  # noqa: BLE001 - fail every member, keep serving
             for p in group:
                 if not p.future.done():

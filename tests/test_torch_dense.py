@@ -320,14 +320,11 @@ def test_engine_generate_and_score_match_jax(engines):
     for kw in ({}, {"max_new_tokens": 9}, {"max_new_tokens": 0}):
         np.testing.assert_array_equal(engine.generate(toks, **kw),
                                       jengine.generate(toks, **kw))
-    # the stop token, the deadline and the stream-cursor arguments
-    kw = dict(max_new_tokens=8, stop_token=int(full[j]), deadline=_Never(),
-              start_from=1)
-    seen = []
-    np.testing.assert_array_equal(
-        engine.generate(toks[:1], on_token=lambda i, t: seen.append(i), **kw),
-        jengine.generate(toks[:1], **kw))
-    assert seen == list(range(1, j))
+    # the stop token and the deadline
+    kw = dict(max_new_tokens=8, stop_token=int(full[j]), deadline=_Never())
+    got = engine.generate(toks[:1], **kw)
+    np.testing.assert_array_equal(got, jengine.generate(toks[:1], **kw))
+    assert got.shape == (1, j)
     for key in engine.stats:
         assert engine.stats[key] - before[0][key] \
             == jengine.stats[key] - before[1][key], key
