@@ -269,31 +269,23 @@ class ContinuousBatcher:
                params: Optional[GenerationParams] = None,
                max_new_tokens: Optional[int] = None,
                stop_token: Optional[int] = None,
-               deadline=None, priority: Optional[int] = None,
-               ttft_slo_ms: Optional[float] = None,
-               tpot_slo_ms: Optional[float] = None,
-               sampling: Optional[SamplingParams] = None,
-               n: int = 1) -> _cf.Future:
+               deadline=None, n: int = 1) -> _cf.Future:
         """Queue a [B, T] (or [T]) prompt; resolves to [B, new] int32.
 
-        ``params`` supplies every per-request field at once.
-        ``priority``/``ttft_slo_ms``/``tpot_slo_ms`` are accepted for
-        interface parity with :meth:`PagedBatcher.submit` and ignored: the
-        dense scheduler has no preemption tier.  A sampled request
-        (temperature > 0) or ``n > 1`` raises ``NotImplementedError`` here,
-        in the caller's thread.
+        ``params`` supplies every per-request field at once; the dense
+        scheduler has no preemption tier, so its priority and SLO fields
+        are ignored.  A sampled request (temperature > 0) or ``n > 1``
+        raises ``NotImplementedError`` here, in the caller's thread.
         """
         if params is not None:
             params.validate()
             max_new_tokens = params.max_new_tokens
             stop_token = params.stop_token
-            sampling = params.sampling(self.engine.serve)
             n = params.n
-        del priority, ttft_slo_ms, tpot_slo_ms
         if int(n) > 1:
             raise NotImplementedError(f"n={n} {_N_TODO}")
-        if sampling is None:   # resolving the defaults checks them
-            _config_sampling(self.engine.serve)
+        # resolving the sampling raises for temperature > 0
+        (params or GenerationParams()).sampling(self.engine.serve)
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
         maxn = self.engine.serve.max_new_tokens if max_new_tokens is None \
             else max_new_tokens  # explicit 0 = prefill-only, not the default

@@ -44,7 +44,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.models import HybridLM, get_model
-from repro_torch.serving import (ContinuousBatcher, Engine, InferenceImpl,
+from repro_torch.serving import (ContinuousBatcher, Engine,
+                                 GenerationParams, InferenceImpl,
                                  PagedBatcher, ServeConfig, decode_token_page,
                                  encode_prompt_page)
 
@@ -368,6 +369,8 @@ def test_continuous_batcher_matches_jax_tokens_and_stats(engines):
     assert cb.mean_batch_rows() == jb.mean_batch_rows() > 1.0
     with pytest.raises(NotImplementedError, match="n=2"):
         cb.submit(reqs[0][0], n=2)
+    with pytest.raises(NotImplementedError, match="temperature"):
+        cb.submit(reqs[0][0], params=GenerationParams(temperature=0.7))
 
 
 def test_infer_and_score_page_match_jax(engines):
