@@ -19,7 +19,9 @@ serving paths at full width, with weights drawn from a seeded
   and recurrentgemma-9b (38 layers, d_model 4096, bf16), whose only
   serving path is the dense one (flash attention with a 2,048 window and
   the RG-LRU scan kernel), including a 2,000-token prompt whose decode
-  wraps the ring cache.
+  wraps the ring cache; and rwkv6-7b (32 layers, d_model 4096, bf16),
+  attention-free, whose prefill and scoring run the WKV scan kernel,
+  including a 2,000-token prompt.
 
 Each path must launch its kernels (counts set to 0 just before it and
 read just after) and match a replay through the plain versions
@@ -48,6 +50,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SEED = 0
 # main-path shapes: qwen2-1.5b at full width under the default ServeConfig
 HQ, HKV, HD, BS = 12, 2, 128, 16
@@ -55,6 +58,7 @@ PROMPT_LENS = (16, 40, 64, 97, 128, 200, 256, 331, 400)
 NEW_TOKENS = 32
 HYBRID_PROMPTS = (0, 3, 5, 7, 8)    # PROMPT_LENS 16, 97, 200, 331, 400
 LONG_PROMPT, LONG_NEW = 2000, 100   # decode crosses the 2,048 window
+RWKV_LONG_NEW = 64                  # rwkv6-7b's 2,000-token request
 SCORE_TOL = 0.02    # mean log-prob, kernel path vs plain replay
 # bf16 tolerances.  Attention outputs: the kernel and the plain version
 # both accumulate in fp32 but in another order, then round to bf16 — one
@@ -73,6 +77,18 @@ F32_ATOL, F32_RTOL = 3e-5, 1e-4     # the JAX kernel tests' f32 tolerances
 # does, so float32 should agree to the last bit; the limit is ~1e-5
 RGLRU_F32_ATOL = RGLRU_F32_RTOL = 1e-5
 LOGIT_TOL = 0.15
+# the WKV scan rounds every product and sum as the plain loop does and sums
+# o over K in the same pairwise tree, so o and the final state must be
+# bit-equal in both dtypes.  o is also held to the JAX kernel tests' f32
+# atol 1e-4 at |o| ~ 1, made relative to the case's largest |o| (hundreds
+# at full width with the model's decays); bf16 adds one bf16 ulp, at most
+# 2^-7 of |o|: the limits a kernel summing in another order would meet.
+WKV_O_ATOL = 1e-4
+WKV_BF16_RTOL = 2 ** -7
+# rwkv6-7b's first-step logits, WKV kernel against its plain version: the
+# kernel's o equals the plain version's bit for bit, and nothing else on
+# the path differs, so the logits must be equal
+RWKV_LOGIT_TOL = 0.0
 SPLIT_MARGIN = 0.05
 MAX_SPLITS = 2
 
@@ -139,6 +155,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
 
     @Phase("build")
     def _build():
@@ -157,12 +174,15 @@ def main() -> int:
         lambda: check_flash(torch, fa, dev)))
     state.update(rglru_kernel=Phase("rglru_kernel")(
         lambda: check_rglru(torch, rg, dev)))
+    state.update(rwkv_kernel=Phase("rwkv_kernel")(
+        lambda: check_rwkv(torch, rw, dev)))
     Phase("model")(lambda: check_model(torch, dev, state))
     Phase("serve")(lambda: serve(torch, bd, pa, dev, state))
     Phase("profile")(lambda: profile(torch, dev, state))
     Phase("dense_serve")(lambda: dense_serve(torch, fa, dev, state))
     Phase("hybrid_serve")(lambda: hybrid_serve(torch, fa, rg, dev, state))
-    Phase("timing")(lambda: timing(torch, bd, pa, fa, rg, dev, state))
+    Phase("rwkv_serve")(lambda: rwkv_serve(torch, rw, dev, state))
+    Phase("timing")(lambda: timing(torch, bd, pa, fa, rg, rw, dev, state))
     emit(json.dumps({"kernels": state["kernels"]}))
     emit(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -360,6 +380,73 @@ def check_rglru(torch, rg, dev):
     torch.cuda.synchronize()
     out["tolerance_f32"] = {"atol": RGLRU_F32_ATOL, "rtol": RGLRU_F32_RTOL}
     out["tolerance_bf16"] = {"atol": 2e-2, "rtol": 2e-2}
+    return out
+
+
+#: (B, H, T, K = V, scale of r/k/v, scale of u, decays, layout): the JAX
+#: kernel tests' shapes, then rwkv6-7b's heads at ragged T for one and
+#: three rows ("model": the init's w0 = -6 plus N(0, 0.01^2), w ~ 0.9975,
+#: and the state grows over T; "jax": exp(-exp(N(0, 1)))).  "btk" passes
+#: [B, H, T, K] views of [B, T, H, K] tensors, as the model does.
+WKV_CASES = tuple(
+    [(1, 1, 32, 16, 0.5, 0.3, "jax", "bhtk"),
+     (2, 2, 64, 32, 0.5, 0.3, "jax", "bhtk"),
+     (1, 4, 128, 64, 0.5, 0.3, "jax", "bhtk")]
+    + [(b, 64, t, 64, 1.0, 0.1, decay, "btk")
+       for b in (1, 3) for t in (1, 7, 128, 400, 2000)
+       for decay in ("model", "jax")])
+
+
+def _wkv_inputs(torch, gen, dev, b, h, t, kk, scale, u_scale, decay, layout,
+                dtype):
+    shape = (b, t, h, kk) if layout == "btk" else (b, h, t, kk)
+
+    def normal(std):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    r, k, v = (normal(scale).to(dtype) for _ in range(3))
+    logw = normal(0.01) - 6.0 if decay == "model" else normal(1.0)
+    w = torch.exp(-torch.exp(logw))
+    u = torch.randn((h, kk), generator=gen, device=dev) * u_scale
+    if layout == "btk":
+        r, k, v, w = (x.transpose(1, 2) for x in (r, k, v, w))
+    return r, k, v, w, u
+
+
+def check_rwkv(torch, rw, dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        rtol = WKV_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+        worst = worst_rel = o_max = 0.0
+        for case in WKV_CASES:
+            r, k, v, w, u = _wkv_inputs(torch, gen, dev, *case, dtype)
+            o, s = rw.rwkv6_scan(r, k, v, w, u)
+            o2, s2 = rw.rwkv6_scan_plain(r, k, v, w, u)
+            if o.dtype != dtype or s.dtype != torch.float32 \
+                    or not torch.equal(s, s2):
+                err = float((s - s2).abs().max())
+                raise AssertionError(f"wkv {tag} {case}: state not bit-equal "
+                                     f"(max err {err})")
+            scale = max(1.0, float(o2.float().abs().max()))
+            ok, err = _close(torch, o, o2, WKV_O_ATOL * scale, rtol)
+            if not ok or not bool(torch.isfinite(o).all()) \
+                    or not torch.equal(o, o2):
+                raise AssertionError(f"wkv {tag} {case}: o max err {err} at "
+                                     f"max |o| {scale}, bit-equal "
+                                     f"{torch.equal(o, o2)}")
+            worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+            o_max = max(o_max, scale)
+        out[f"{tag}_o_max_abs_err"] = worst
+        out[f"{tag}_o_max_err_over_max_abs_o"] = worst_rel
+        out[f"{tag}_max_abs_o"] = o_max
+    torch.cuda.synchronize()
+    out.update(cases=2 * len(WKV_CASES), state_bit_exact=True,
+               o_bit_exact=True,
+               tolerance={"o_atol": f"{WKV_O_ATOL} * max(1, max |o|)",
+                          "o_rtol_bf16": WKV_BF16_RTOL,
+                          "o_and_state": "equal"})
     return out
 
 
@@ -874,6 +961,121 @@ def hybrid_serve(torch, fa, rg, dev, state):
             "plain_scores": ref_scores.tolist(), "score_tol": SCORE_TOL}
 
 
+def rwkv_serve(torch, rw, dev, state):
+    """rwkv6-7b at full width through InferenceImpl (the default
+    ServeConfig gives the dense ContinuousBatcher: the family has no paged
+    KV): five prompt pages, three 48-token pages that merge, score_page,
+    then one 2,000-token page (15 x 128 + 80) for 64 new tokens at a
+    cache_len that admits it (RWKV keeps no KV; cache_len only bounds the
+    prompt the service takes)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import (ContinuousBatcher, Engine,
+                                     InferenceImpl, ServeConfig,
+                                     encode_prompt_page)
+    gc.collect()    # the hybrid phase's 18.8 GB of weights
+    torch.cuda.empty_cache()
+    cfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    engine = Engine(cfg, ServeConfig(), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    ref = Engine(plain_cfg, ServeConfig(), params=engine.params, device=dev)
+    long_sc = ServeConfig(cache_len=2048)
+    long_engine = Engine(cfg, long_sc, params=engine.params, device=dev)
+    long_ref = Engine(plain_cfg, long_sc, params=engine.params, device=dev)
+    all_prompts = _prompts(cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [all_prompts[i] for i in HYBRID_PROMPTS] \
+        + [rng.integers(0, cfg.vocab_size, 48) for _ in range(3)]
+    long_prompt = rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT))
+    score_page = encode_prompt_page(rng.integers(0, cfg.vocab_size, (2, 64)))
+    wave = [(encode_prompt_page(p[None]), NEW_TOKENS) for p in prompts]
+    long_page = [(encode_prompt_page(long_prompt), RWKV_LONG_NEW)]
+    impl, long_impl = InferenceImpl(engine), InferenceImpl(long_engine)
+    if not isinstance(impl.batcher, ContinuousBatcher):
+        raise AssertionError(f"rwkv got {type(impl.batcher)}")
+    widths = []
+    _timed_steps(torch, engine.model, widths)
+    _timed_steps(torch, long_engine.model, widths)
+    rw.rwkv6_scan.launches = 0
+    t0 = time.perf_counter()
+    out = _drive(impl, wave)
+    wall = time.perf_counter() - t0
+    scores = impl.score_page(score_page)["scores"]
+    t1 = time.perf_counter()
+    long_out = _drive(long_impl, long_page)
+    long_wall = time.perf_counter() - t1
+    launches = rw.rwkv6_scan.launches
+    stats = impl.batcher.collect_stats()
+    impl.close()
+    long_impl.close()
+    prefills = engine.stats["prefills"] + long_engine.stats["prefills"]
+    # one launch per layer per prefill and one per layer for the score
+    want = cfg.num_layers * (prefills + 1)
+    if launches != want:
+        raise AssertionError(f"rwkv6_scan launched {launches} times, not "
+                             f"{want} ({prefills} prefills + 1 score x "
+                             f"{cfg.num_layers} layers)")
+    if stats["batched_rows"] <= stats["batches"]:
+        raise AssertionError(f"no requests merged: {stats}")
+    toks, long_toks = _tokens(out), _tokens(long_out)
+    for t, (_, n) in zip(toks + long_toks, wave + long_page):
+        if t.shape != (1, n) or int(t.max()) >= cfg.vocab_size:
+            raise AssertionError(f"bad response {t.shape} for {n} tokens")
+    ref_impl, long_ref_impl = InferenceImpl(ref), InferenceImpl(long_ref)
+    ref_toks = _tokens(_drive(ref_impl, wave))
+    ref_scores = ref_impl.score_page(score_page)["scores"]
+    ref_long = _tokens(_drive(long_ref_impl, long_page))
+    ref_impl.close()
+    long_ref_impl.close()
+    vs_plain = _match(torch, ref, [p[None] for p in prompts] + [long_prompt],
+                      toks + long_toks, ref_toks + ref_long,
+                      "rwkv vs plain replay")
+    if scores.shape != (2,) or not np.isfinite(scores).all() \
+            or float(np.abs(scores - ref_scores).max()) > SCORE_TOL:
+        raise AssertionError(f"scores {scores} vs plain {ref_scores}")
+    # first-step logits (after the prompt) of the 400- and 2,000-token
+    # prompts, kernel against plain, on fresh models (no step timers)
+    kern, plain = get_model(cfg), get_model(plain_cfg)
+    logit_diff = {}
+    for seq in (prompts[4][None], long_prompt):
+        batch = {"tokens": torch.tensor(seq, dtype=torch.int32, device=dev)}
+        a, _ = kern.prefill(engine.params, batch, 0)
+        r, _ = plain.prefill(engine.params, batch, 0)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"non-finite logits at T {seq.shape[1]}")
+        logit_diff[str(seq.shape[1])] = float((a.float() - r.float())
+                                              .abs().max())
+    if max(logit_diff.values()) > RWKV_LOGIT_TOL:
+        raise AssertionError(f"first-step logits differ by {logit_diff} "
+                             f"(limit {RWKV_LOGIT_TOL})")
+    n_tokens = sum(t.size for t in toks)
+    state["rwkv_launches"] = launches
+    return {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.d_model // cfg.rwkv_head_dim,
+            "head_dim": cfg.rwkv_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "init_s": init_s,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(engine.params)),
+            "requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall, "stats": stats,
+            "long": {"prompt": LONG_PROMPT, "new_tokens": RWKV_LONG_NEW,
+                     "cache_len": long_sc.cache_len, "wall_s": long_wall,
+                     "tokens_per_s": RWKV_LONG_NEW / long_wall},
+            "steps": _step_summary(widths),
+            "launches": {"rwkv6_scan.rwkv6_scan": launches},
+            "engine_stats": dict(engine.stats),
+            "tokens_vs_plain": vs_plain, "scores": scores.tolist(),
+            "plain_scores": ref_scores.tolist(), "score_tol": SCORE_TOL,
+            "first_step_logits_max_abs_diff": logit_diff,
+            "logit_tol": RWKV_LOGIT_TOL}
+
+
 # -- timing ------------------------------------------------------------------
 
 
@@ -926,7 +1128,20 @@ def _causal_pairs(t, window=None):
     return sum(min(i + 1, w) for i in range(t))
 
 
-def timing(torch, bd, pa, fa, rg, dev, state):
+def _wkv_bound(b, h, t, kk, vv, itemsize=2):
+    """Least time for one WKV scan: bytes (r, k, v in their dtype, w float32
+    read once, u, o written once, the float32 final state) over HBM
+    bandwidth vs 7 float32 operations per state element per step (k v,
+    u k v, the add, r times it, the K-sum, w S, the add) over the float32
+    peak outside the tensor cores; the larger wins."""
+    nbytes = (b * h * t * (2 * kk + 2 * vv) * itemsize + b * h * t * kk * 4
+              + h * kk * 4 + b * h * kk * vv * 4)
+    flops = 7 * b * h * t * kk * vv
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def timing(torch, bd, pa, fa, rg, rw, dev, state):
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -1104,6 +1319,33 @@ def timing(torch, bd, pa, fa, rg, dev, state):
         # (cumsum/cumprod forms need a division by the running product)
         "library_ms": None,
         "shape": f"x, a [1, {t}, 4096] float32"})
+    # the WKV scan at rwkv6-7b's longest prompt of the wave (T 400) and,
+    # as an extra row, its 2,000-token prompt: bf16 r/k/v and float32 w/u,
+    # [B, H, T, K] views of [B, T, H, K] as the model passes them
+    for t in (max(PROMPT_LENS), LONG_PROMPT):
+        r, k, v, w, u = _wkv_inputs(torch, gen, dev, 1, 64, t, 64, 1.0, 0.1,
+                                    "model", "btk", torch.bfloat16)
+        bound, by = _wkv_bound(1, 64, t, 64, 64)
+        entry = {
+            "ms": _cold_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u),
+                           flush),
+            "plain_ms": _cold_ms(torch, lambda: rw.rwkv6_scan_plain(
+                r, k, v, w, u), flush, iters=5),
+            "bound_ms": bound, "bound_by": by,
+            # no single PyTorch call computes the WKV recurrence
+            "library_ms": None,
+            "shape": f"r, k, v [1, 64, {t}, 64] bf16 (views of [B, T, H, K]),"
+                     f" w [1, 64, {t}, 64] f32, u [64, 64] f32"}
+        if t == LONG_PROMPT:
+            extra[f"rwkv6_scan@T{t}"] = entry
+            continue
+        kernels.append({
+            "name": "rwkv6_scan.rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:60",
+            "launches": state["rwkv_launches"],
+            "max_abs_err": state["rwkv_kernel"]["bf16_o_max_abs_err"],
+            **entry})
     state["kernels"] = kernels
     return {"card": state["smi"], "extra": extra}
 

@@ -2,8 +2,11 @@
 
 The port keeps the JAX params tree exactly (``embed``, ``final_norm``,
 ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, bq, bk, bv}, mlp/{w_gate,
-w_up, w_down}}``, stacked ``[L, ...]``; the hybrid model's ``supers``
-and ``tail``), so the map is the identity on names: ``np.asarray`` each
+w_up, w_down}}``, stacked ``[L, ...]``; RWKV6's ``lm_head`` and
+``layers/{ln1_s, ln1_b, ln2_s, ln2_b, mu_x, mu, lora_A, lora_B, wr, wk,
+wv, wg, wo, w0, wdecay_A, wdecay_B, u, gn_s, gn_b, mu_ck, mu_cr, wck,
+wcv, wcr}``; the hybrid model's ``supers`` and ``tail``), so the map is
+the identity on names: ``np.asarray`` each
 leaf of a JAX params tree (or take the arrays ``checkpoint/format.py``'s
 ``flatten_tree`` yields, nested back by their ``/`` paths) and hand the
 tree here.
@@ -17,7 +20,9 @@ import torch
 
 #: leaves the JAX init keeps in float32 whatever the model dtype: the
 #: RG-LRU's Lambda (``models/rglru.py``), from which the decay
-#: ``a = exp(-8 softplus(Lambda) r)`` is computed in float32
+#: ``a = exp(-8 softplus(Lambda) r)`` is computed in float32.  RWKV6's
+#: ``w0`` and ``u`` are not among them: JAX keeps them in the model dtype
+#: and casts them to float32 where the decay and the bonus are computed.
 FLOAT32_LEAVES = frozenset({"lam"})
 
 

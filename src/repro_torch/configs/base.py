@@ -25,16 +25,16 @@ class ModelConfig:
     """One architecture's hyperparameters.
 
     ``attention_impl`` selects how every kernel on the model path runs
-    (paged attention, flash attention and the RG-LRU scan):
+    (paged attention, flash attention, the RG-LRU scan and the WKV scan):
     ``"kernel"`` (the default here) launches the hand-written CUDA kernel
     for CUDA tensors and uses its plain PyTorch version for CPU tensors;
     ``"reference"`` calls the plain version by name on any device.  This
     departs from the JAX package in two ways: its default is
     ``"reference"``, so its models reach their Pallas kernels only when
     asked, where in the port the kernel is the default on the card; and
-    its recurrent block calls the RG-LRU scan with no impl, where the
-    port passes this field, so that ``"reference"`` selects the plain
-    version of every kernel on the path.
+    its recurrent blocks call the RG-LRU and WKV scans with no impl,
+    where the port passes this field, so that ``"reference"`` selects the
+    plain version of every kernel on the path.
     """
 
     name: str

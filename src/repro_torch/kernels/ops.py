@@ -1,12 +1,12 @@
 """Kernel entry points the models call, with the ``impl`` switch.
 
 Each wrapper in :mod:`.bebop_decode`, :mod:`.paged_attention`,
-:mod:`.flash_attention` and :mod:`.rglru_scan` already runs its plain
-version for a CPU tensor and launches its kernel (or raises) for a CUDA
-tensor.  What is left here is the model config's ``attention_impl``:
-``"kernel"`` goes through the wrapper, ``"reference"`` calls the plain
-version by name on any device; and, for paged attention, the query width,
-as in the JAX package's ``ops.paged_attention``.
+:mod:`.flash_attention`, :mod:`.rglru_scan` and :mod:`.rwkv6_scan`
+already runs its plain version for a CPU tensor and launches its kernel
+(or raises) for a CUDA tensor.  What is left here is the model config's
+``attention_impl``: ``"kernel"`` goes through the wrapper, ``"reference"``
+calls the plain version by name on any device; and, for paged attention,
+the query width, as in the JAX package's ``ops.paged_attention``.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from . import flash_attention as _fa
 from . import paged_attention as _pa
 from . import rglru_scan as _rg
+from . import rwkv6_scan as _rw
 
 
 def _check_impl(impl: str) -> None:
@@ -67,3 +68,13 @@ def rglru(x: torch.Tensor, a: torch.Tensor, *, impl: str = "kernel"
     _check_impl(impl)
     fn = _rg.rglru_scan if impl == "kernel" else _rg.rglru_scan_plain
     return fn(x, a)
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor, *, impl: str = "kernel"
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The WKV6 recurrence: r, k, w [B, H, T, K], v [B, H, T, V], u
+    [H, K] -> (o [B, H, T, V], final state [B, H, K, V] float32)."""
+    _check_impl(impl)
+    fn = _rw.rwkv6_scan if impl == "kernel" else _rw.rwkv6_scan_plain
+    return fn(r, k, v, w, u)

@@ -1,4 +1,4 @@
-"""Model building blocks: norm, RoPE, GQA attention (full-sequence,
+"""Model building blocks: norms, RoPE, GQA attention (full-sequence,
 dense prefill and cached decode, and against the paged block pool),
 SwiGLU/GeGLU MLP, embed and unembed, and the seeded initializer.
 
@@ -117,6 +117,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float) -> torch.Tensor:
+    """Per-head group norm (the RWKV6 output norm).  x: [..., D]."""
+    orig = x.shape
+    xf = x.float().reshape(*orig[:-1], num_groups, -1)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(orig)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -1,15 +1,20 @@
-"""Model assembly: the dense decoder LM (paged serving, dense prefill and
-decode, full-sequence logits) and the hybrid LM (RecurrentGemma).
+"""Model assembly: the decoder LM (dense GQA layers with paged serving,
+dense prefill and decode and full-sequence logits; or RWKV6 layers with
+dense serving and logits) and the hybrid LM (RecurrentGemma).
 
 The JAX package stacks layer parameters ``[L, ...]`` and consumes them
 with ``jax.lax.scan``; here a Python loop over layers takes the place of
 the scan and each layer's parameters are views into the same stacked
 tensors, so the parameter trees are the JAX ones unchanged:
 ``embed``, ``final_norm``, ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, bq,
-bk, bv}, mlp/{w_gate, w_up, w_down}}`` for the decoder; ``supers/b{i}``
-(stacked over super-blocks) and ``tail/t{i}`` for the hybrid.  Caches
-keep the JAX layout too (``k``/``v`` ``[L, B, Hkv, S, hd]``); decode
-updates them in place where JAX returns a new cache.
+bk, bv}, mlp/{w_gate, w_up, w_down}}`` for the decoder; ``layers/{ln1_s,
+ln1_b, mu_x, mu, lora_A, lora_B, wr, wk, wv, wg, wo, w0, wdecay_A,
+wdecay_B, u, gn_s, gn_b, ln2_s, ln2_b, mu_ck, mu_cr, wck, wcv, wcr}`` for
+RWKV6 (``lm_head`` untied); ``supers/b{i}`` (stacked over super-blocks)
+and ``tail/t{i}`` for the hybrid.  Caches keep the JAX layout too
+(``k``/``v`` ``[L, B, Hkv, S, hd]``; RWKV6 ``shift_t``/``shift_c``
+``[L, B, 1, D]`` and ``wkv`` ``[L, B, H, K, V]``); decode updates them in
+place where JAX returns a new cache.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 from ..configs.base import ModelConfig
 from . import layers as L
 from . import rglru as R
+from . import rwkv6 as W
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -52,6 +58,8 @@ def _window(cfg: ModelConfig):
 
 def decoder_layer_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                         positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rwkv:
+        return W.rwkv_block(p, x, cfg)[0]
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_train(p["attn"], h, cfg, positions,
                               window=_window(cfg))
@@ -61,6 +69,8 @@ def decoder_layer_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
                           positions: torch.Tensor, cache_len: int):
+    if cfg.rwkv:   # no KV: the cache is the state, cache_len unused
+        return W.rwkv_block(p, x, cfg)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     att, kv = L.attention_prefill(p["attn"], h, cfg, positions, cache_len,
                                   window=_window(cfg))
@@ -71,6 +81,11 @@ def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                          cache: Dict[str, torch.Tensor], pos: int):
+    if cfg.rwkv:
+        x, new = W.rwkv_block(p, x, cfg, state=cache)
+        for name, val in new.items():   # write through the view
+            cache[name].copy_(val)
+        return x, cache
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     att, kv = L.attention_decode(p["attn"], h, cfg, cache, pos,
                                  window=_window(cfg))
@@ -95,9 +110,11 @@ def decoder_layer_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 class DecoderLM:
-    """Decoder-only LM (dense GQA family): paged serving steps, dense
-    prefill and decode against a ``[L, B, Hkv, S, hd]`` cache, and
-    full-sequence logits.  MoE, RWKV and non-token inputs raise."""
+    """Decoder-only LM over homogeneous layers: dense GQA (paged serving
+    steps, dense prefill and decode against a ``[L, B, Hkv, S, hd]``
+    cache, full-sequence logits) or RWKV6 (dense prefill and decode
+    against the stacked recurrent state, full-sequence logits).  MoE and
+    non-token inputs raise."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -110,10 +127,13 @@ class DecoderLM:
         init = L.Initializer(seed, device, L.dtype_of(cfg))
         n = cfg.num_layers
         p: Params = init.embedding(cfg)
-        p["layers"] = {"ln1": init.ones(n, cfg.d_model),
-                       "ln2": init.ones(n, cfg.d_model),
-                       "attn": init.attention(n, cfg),
-                       "mlp": init.mlp(n, cfg)}
+        if cfg.rwkv:
+            p["layers"] = W.init_rwkv_block(init, n, cfg)
+        else:
+            p["layers"] = {"ln1": init.ones(n, cfg.d_model),
+                           "ln2": init.ones(n, cfg.d_model),
+                           "attn": init.attention(n, cfg),
+                           "mlp": init.mlp(n, cfg)}
         p["final_norm"] = init.ones(None, cfg.d_model)
         return p
 
@@ -122,8 +142,6 @@ class DecoderLM:
         cfg = self.cfg
         if cfg.moe is not None:
             raise NotImplementedError(f"{cfg.name}: MoE {_FAMILY_TODO}")
-        if cfg.rwkv:
-            raise NotImplementedError(f"{cfg.name}: RWKV {_FAMILY_TODO}")
         if cfg.input_kind != "tokens":
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.input_kind} inputs {_FAMILY_TODO}")
@@ -150,6 +168,9 @@ class DecoderLM:
     # -- dense serving -----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device) -> Params:
         cfg = self.cfg
+        if cfg.rwkv:
+            return _stack([W.init_rwkv_state(cfg, batch, L.dtype_of(cfg),
+                                             device)] * cfg.num_layers)
         s = min(cache_len, cfg.window) if cfg.attention_kind == "local" \
             else cache_len
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, s, cfg.head_dim)
@@ -157,7 +178,8 @@ class DecoderLM:
                 "v": torch.zeros(shape, dtype=L.dtype_of(cfg), device=device)}
 
     def prefill(self, params: Params, batch: Batch, cache_len: int):
-        """tokens [B, T] -> (logits [B, V] after the last token, cache)."""
+        """tokens [B, T] -> (logits [B, V] after the last token, cache);
+        an RWKV6 cache is the stacked state after the last token."""
         self._check_dense()
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -174,8 +196,8 @@ class DecoderLM:
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache,
                     pos: int):
-        """tokens: [B, 1]; pos: absolute position (host int).  Returns
-        (logits [B, V], cache updated in place)."""
+        """tokens: [B, 1]; pos: absolute position (host int, unused by
+        RWKV6).  Returns (logits [B, V], cache updated in place)."""
         self._check_dense()
         cfg = self.cfg
         x = L.embed(params, tokens, cfg)
@@ -407,9 +429,9 @@ class HybridLM:
 
 
 def get_model(cfg: ModelConfig):
-    if cfg.encoder_layers or cfg.rwkv:
+    if cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and RWKV models {_FAMILY_TODO}")
+            f"{cfg.name}: encoder-decoder models {_FAMILY_TODO}")
     if cfg.block_pattern:
         return HybridLM(cfg)
     return DecoderLM(cfg)

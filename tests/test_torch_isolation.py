@@ -6,7 +6,8 @@
   in an import statement.
 * Entry points default to the card and raise where CUDA is missing.
 * A non-CPU tensor never reaches a plain version: with the kernel
-  library unavailable, the wrappers raise instead of answering.
+  library unavailable, the wrappers raise instead of answering; and a
+  plain answer for a CPU tensor moves no launch counter.
 """
 import ast
 import os
@@ -24,6 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.serving import Engine, PageIngest, ServeConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -163,6 +165,37 @@ def test_dense_entry_points_default_to_cuda(monkeypatch):
     the same device rule as the paged path."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config(get_config("recurrentgemma-9b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, ServeConfig())
+    from repro_torch.serving import ContinuousBatcher, InferenceImpl
+    impl = InferenceImpl(Engine(cfg, ServeConfig(cache_len=32),
+                                device="cpu"))
+    try:
+        assert isinstance(impl.batcher, ContinuousBatcher)
+        assert impl.ingest.device.type == "cpu"
+    finally:
+        impl.close()
+
+
+def test_wkv_kernel_raises_for_non_cpu_tensors(no_kernel_library):
+    x = torch.empty((1, 2, 8, 16), device="meta")
+    u = torch.empty((2, 16), device="meta")
+    with pytest.raises(build.KernelBuildError, match="nvcc"):
+        rw.rwkv6_scan(x, x, x, x, u)
+
+
+def test_wkv_kernel_counter_does_not_move_on_the_plain_path():
+    before = rw.rwkv6_scan.launches
+    x = torch.zeros((1, 2, 3, 16))
+    rw.rwkv6_scan(x, x, x, x, torch.zeros((2, 16)))
+    assert rw.rwkv6_scan.launches == before
+
+
+def test_rwkv_entry_points_default_to_cuda(monkeypatch):
+    """rwkv6-7b's engine follows the same device rule; its service takes
+    the dense batcher (no paged KV) on the engine's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config(get_config("rwkv6-7b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(cfg, ServeConfig())
     from repro_torch.serving import ContinuousBatcher, InferenceImpl

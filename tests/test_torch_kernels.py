@@ -12,7 +12,8 @@ JAX oracles in ``kernels/ref.py``) on the same numpy inputs:
 
 The CUDA cases compare each kernel with its plain version on the card and
 skip where there is none (``tests/test_torch_dense.py`` holds the plain
-versions of the flash attention and RG-LRU kernels against JAX).
+versions of the flash attention and RG-LRU kernels against JAX,
+``tests/test_torch_rwkv.py`` that of the WKV scan).
 """
 import threading
 
@@ -32,6 +33,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as rw
 
 ATOL, RTOL = 3e-5, 1e-4
 
@@ -299,3 +301,46 @@ def test_cuda_rglru_kernel_matches_plain(cuda, dtype, atol, rtol, b, t, d):
     assert h.dtype == dtype and hf.dtype == torch.float32
     torch.testing.assert_close(h.float(), h2.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(hf, hf2, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,o_tol", [
+    # every product and sum is rounded as the plain loop rounds it, and o's
+    # K-sum runs in its pairwise tree: o and the state bit-exact in both
+    # dtypes.  o is also held to the limits a kernel summing in another
+    # order would meet: the JAX kernel tests' atol 1e-4 at |o| ~ 1, made
+    # relative to the case's largest |o|; in bfloat16 also one bfloat16 ulp
+    # (at most 2^-7 of |o|)
+    (torch.float32, (1e-4, 0.0)),
+    (torch.bfloat16, (1e-4, 2 ** -7)),
+])
+@pytest.mark.parametrize("b,h,t,kk,w0", [
+    (1, 1, 32, 16, None), (2, 2, 64, 32, None), (1, 4, 128, 64, None),
+    (2, 64, 7, 64, -6.0),     # rwkv6-7b's heads, ragged T, the init decay
+    (1, 64, 400, 64, -6.0),
+    (3, 8, 1, 64, None),
+])
+def test_cuda_rwkv6_kernel_matches_plain(cuda, dtype, o_tol, b, h, t, kk,
+                                         w0):
+    """Decays ``exp(-exp(N(0, 1)))`` as in the JAX kernel tests, or near
+    the model's init ``w0 = -6`` (w ~ 0.9975), where the state grows over
+    T.  r, k, v, w reach the kernel as [B, H, T, K] views of [B, T, H, K]
+    tensors, as the model passes them."""
+    rng = np.random.default_rng(t + kk)
+    r, k, v = (rng.standard_normal((b, t, h, kk)).astype(np.float32)
+               for _ in range(3))
+    logw = rng.standard_normal((b, t, h, kk)) * (0.5 if w0 else 1.0)
+    w = np.exp(-np.exp(logw + (w0 or 0.0))).astype(np.float32)
+    u = (rng.standard_normal((h, kk)) * 0.3).astype(np.float32)
+    r, k, v = (x.to(cuda).to(dtype).transpose(1, 2) for x in _t(r, k, v))
+    w = _t(w)[0].to(cuda).transpose(1, 2)
+    u = _t(u)[0].to(cuda)
+    before = rw.rwkv6_scan.launches
+    o, s = rw.rwkv6_scan(r, k, v, w, u)
+    assert rw.rwkv6_scan.launches == before + 1
+    o2, s2 = rw.rwkv6_scan_plain(r, k, v, w, u)
+    assert o.dtype == dtype and s.dtype == torch.float32
+    assert torch.equal(s, s2)
+    atol = o_tol[0] * max(1.0, float(o2.float().abs().max()))
+    torch.testing.assert_close(o.float(), o2.float(), atol=atol,
+                               rtol=o_tol[1])
+    assert torch.equal(o, o2)
