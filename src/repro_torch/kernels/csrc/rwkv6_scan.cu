@@ -7,10 +7,13 @@
 // Replaces: src/repro/kernels/rwkv6_scan.py:60 rwkv6_scan (Pallas body
 // _wkv_kernel, :30).
 //
-// Bound: operations.  Each step does 7 float32 operations on every
-// state element (k v, u k v, the add, r times it and the sum over K, w S,
-// the add) and reads only 3K + V inputs, so at K = V = 64 the float32
-// rate outside the tensor cores, not the bytes, sets the least time.
+// Bound: operations.  The function needs 5 float32 operations on every
+// state element a step (o_t = S^T r_t + (r_t . (u * k_t)) v_t is one
+// multiply-add, the bonus term only O(K + V); S_t = w * S + k v^T a
+// multiply and a multiply-add) and reads only 3K + V inputs, so at
+// K = V = 64 the float32 rate outside the tensor cores, not the bytes,
+// sets the least time.  This kernel issues 7 (below: it rounds as the
+// plain version does, so it cannot fuse), which the bound does not count.
 //
 // Design: one CTA per (batch row, head), one thread per value channel v.
 // The TPU kernel carries S in VMEM across a sequential grid axis over

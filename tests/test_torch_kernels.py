@@ -303,24 +303,16 @@ def test_cuda_rglru_kernel_matches_plain(cuda, dtype, atol, rtol, b, t, d):
     torch.testing.assert_close(hf, hf2, atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("dtype,o_tol", [
-    # every product and sum is rounded as the plain loop rounds it, and o's
-    # K-sum runs in its pairwise tree: o and the state bit-exact in both
-    # dtypes.  o is also held to the limits a kernel summing in another
-    # order would meet: the JAX kernel tests' atol 1e-4 at |o| ~ 1, made
-    # relative to the case's largest |o|; in bfloat16 also one bfloat16 ulp
-    # (at most 2^-7 of |o|)
-    (torch.float32, (1e-4, 0.0)),
-    (torch.bfloat16, (1e-4, 2 ** -7)),
-])
+# every product and sum is rounded as the plain loop rounds it, and o's
+# K-sum runs in its pairwise tree: o and the state bit-exact in both dtypes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,t,kk,w0", [
     (1, 1, 32, 16, None), (2, 2, 64, 32, None), (1, 4, 128, 64, None),
     (2, 64, 7, 64, -6.0),     # rwkv6-7b's heads, ragged T, the init decay
     (1, 64, 400, 64, -6.0),
     (3, 8, 1, 64, None),
 ])
-def test_cuda_rwkv6_kernel_matches_plain(cuda, dtype, o_tol, b, h, t, kk,
-                                         w0):
+def test_cuda_rwkv6_kernel_matches_plain(cuda, dtype, b, h, t, kk, w0):
     """Decays ``exp(-exp(N(0, 1)))`` as in the JAX kernel tests, or near
     the model's init ``w0 = -6`` (w ~ 0.9975), where the state grows over
     T.  r, k, v, w reach the kernel as [B, H, T, K] views of [B, T, H, K]
@@ -340,7 +332,4 @@ def test_cuda_rwkv6_kernel_matches_plain(cuda, dtype, o_tol, b, h, t, kk,
     o2, s2 = rw.rwkv6_scan_plain(r, k, v, w, u)
     assert o.dtype == dtype and s.dtype == torch.float32
     assert torch.equal(s, s2)
-    atol = o_tol[0] * max(1.0, float(o2.float().abs().max()))
-    torch.testing.assert_close(o.float(), o2.float(), atol=atol,
-                               rtol=o_tol[1])
     assert torch.equal(o, o2)
