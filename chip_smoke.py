@@ -158,8 +158,16 @@ def main() -> int:
         ptxas = sorted({ln.strip() for log in build.build_logs.values()
                         for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln})
+        # the bf16 flash kernels keep their output accumulator in registers
+        flash_spills = {
+            fn: n for fn, n in build.spill_stores(
+                build.build_logs["flash_attention"]).items()
+            if "bfloat16" in fn}
+        if not flash_spills or any(flash_spills.values()):
+            raise AssertionError(f"bf16 flash attention spill stores "
+                                 f"(bytes, by kernel): {flash_spills}")
         return {"libraries": {k: v.name for k, v in libs.items()},
-                "ptxas": ptxas}
+                "ptxas": ptxas, "bf16_flash_spill_stores": flash_spills}
 
     state.update(decode_kernel=Phase("decode_kernel")(
         lambda: check_decode(torch, bd, dev)))
@@ -310,6 +318,18 @@ FLASH_CASES = ((1, 1, True, None, 0), (7, 7, True, None, 0),
                (2100, 2100, True, 2048, 0), (4, 10, True, 8, 14))
 #: (Hq, Hkv, D): qwen2-1.5b and recurrentgemma-9b
 FLASH_HEADS = ((12, 2, 128), (16, 1, 256))
+#: the full-width prefills the main paths give the flash kernel, B 1,
+#: causal: qwen2-1.5b's longest served prompt, recurrentgemma-9b's long one
+#: (name: Hq, Hkv, D, T, window)
+FLASH_FULL = {"qwen2": (HQ, HKV, HD, max(PROMPT_LENS), None),
+              "recurrentgemma": (16, 1, 256, LONG_PROMPT, 2048)}
+#: the share of bf16 outputs at FLASH_FULL that may differ from the plain
+#: version's.  Both sum in f32 and round once to bf16, so they differ only
+#: where the two f32 sums straddle a rounding boundary: with the kernel's
+#: f32 error (~1e-6 relative, P split into bf16 hi + lo) against a bf16
+#: ulp of 2^-8, a few in a thousand.  A P rounded to one bf16 errs by up
+#: to 2^-9 relative, half a bf16 ulp, and would move far more.
+MAX_BF16_MISMATCH = 0.01
 
 
 def check_flash(torch, fa, dev):
@@ -344,8 +364,21 @@ def check_flash(torch, fa, dev):
                                              f"valid key is not zero")
                 worst = max(worst, err)
         out[f"{tag}_max_abs_err"] = worst
+    for name, (hq, hkv, d, t, window) in FLASH_FULL.items():
+        q, k, v = (torch.randn((1, h, t, d), generator=gen, device=dev).to(
+            torch.bfloat16) for h in (hq, hkv, hkv))
+        got = fa.flash_attention(q, k, v, window=window)
+        want = fa.flash_attention_plain(q, k, v, window=window)
+        ok, err = _close(torch, got, want, ATTN_ATOL, ATTN_RTOL)
+        share = float((got != want).float().mean())
+        out[f"bf16_mismatch_share@{name}_T{t}"] = share
+        if not ok or share > MAX_BF16_MISMATCH:
+            raise AssertionError(
+                f"flash bf16 {name} T {t}: max err {err}, {share:.4%} of "
+                f"outputs differ from the plain version's (limit "
+                f"{MAX_BF16_MISMATCH:.0%})")
     torch.cuda.synchronize()
-    out["cases"] = 2 * len(FLASH_HEADS) * len(FLASH_CASES)
+    out["cases"] = 2 * len(FLASH_HEADS) * len(FLASH_CASES) + len(FLASH_FULL)
     out["fully_masked_rows_zero"] = True
     out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
     out["tolerance_f32"] = {"atol": F32_ATOL, "rtol": F32_RTOL}
@@ -1115,12 +1148,17 @@ def _attn_bound(qpos_rows, t, m, itemsize=2):
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
+def _flash_flops(b, hq, d, pairs):
+    """The QK and PV products of the unmasked (query, key) pairs."""
+    return 4 * d * b * hq * pairs
+
+
 def _flash_bound(b, hq, hkv, tq, s, d, pairs, itemsize=2):
     """Least time for one flash-attention call: bytes (q, k, v in, out)
-    over HBM bandwidth vs the QK and PV products of the unmasked
-    (query, key) pairs over bf16 peak; the larger wins."""
+    over HBM bandwidth vs :func:`_flash_flops` over bf16 peak; the larger
+    wins."""
     nbytes = (2 * b * hq * tq * d + 2 * b * hkv * s * d) * itemsize
-    flops = 4 * d * b * hq * pairs
+    flops = _flash_flops(b, hq, d, pairs)
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
@@ -1269,16 +1307,15 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
                          f"T {t}, ctx {ctx}, bf16"})
     # flash attention at qwen2-1.5b's longest served prefill (B 1, T 400)
     # and, as an extra row, recurrentgemma-9b's long prompt (T 2000)
-    for name, (hq, hkv, d, t, window) in (
-            ("qwen2", (HQ, HKV, HD, max(PROMPT_LENS), None)),
-            ("recurrentgemma", (16, 1, 256, LONG_PROMPT, 2048))):
+    for name, (hq, hkv, d, t, window) in FLASH_FULL.items():
         q = torch.randn((1, hq, t, d), generator=gen,
                         device=dev).to(torch.bfloat16)
         k = torch.randn((1, hkv, t, d), generator=gen,
                         device=dev).to(torch.bfloat16)
         v = torch.randn((1, hkv, t, d), generator=gen,
                         device=dev).to(torch.bfloat16)
-        bound, by = _flash_bound(1, hq, hkv, t, t, d, _causal_pairs(t, window))
+        pairs = _causal_pairs(t, window)
+        bound, by = _flash_bound(1, hq, hkv, t, t, d, pairs)
         entry = {
             "ms": _cold_ms(torch, lambda: fa.flash_attention(
                 q, k, v, window=window), flush),
@@ -1292,6 +1329,10 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
                     q, k, v, is_causal=True, enable_gqa=True), flush),
             "shape": f"B 1, Hq {hq}, Hkv {hkv}, D {d}, T {t}, causal, "
                      f"window {window}, bf16"}
+        # the function's flops (4 D a pair) over each call's time
+        flops = _flash_flops(1, hq, d, pairs)
+        entry["tflops"] = flops / entry["ms"] / 1e9
+        entry["library_tflops"] = flops / entry["library_ms"] / 1e9
         if name == "recurrentgemma":
             entry["launches_on_hybrid_path"] = state["hybrid_launches"][
                 "flash_attention.flash_attention"]

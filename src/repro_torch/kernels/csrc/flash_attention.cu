@@ -5,30 +5,62 @@
 // Replaces: src/repro/kernels/flash_attention.py:95 flash_attention
 // (Pallas body _attn_kernel, :29).
 //
-// Bound: at the main path's prefill shapes (qwen2-1.5b: g = 6 grouped
-// heads, D 128; recurrentgemma-9b: g = 16, D 256; T in the hundreds to
-// thousands) each key feeds g x T query rows, so the QK and PV products
-// (4 * D flops per unmasked (query, key) pair) are far above the ~295
-// operations per byte where the tensor cores become the limit: the
-// kernel is bound by operations.  This first version runs them on CUDA
-// cores in fp32; wgmma tiles fed by TMA are later work.
+// Bound: a call moves q, k, v and out once and does 4 * D flops per
+// unmasked (query, key) pair.  At recurrentgemma-9b's 2,000-token prompt
+// (g = 16 query heads per KV head, D 256, window 2048) that is 32.7 GFLOP
+// against 35 MB: bound by operations on the bf16 tensor cores.  At
+// qwen2-1.5b's 400-token prefill (g = 6, D 128) it is 0.49 GFLOP against
+// 2.9 MB: bound by bytes, by a small margin.
 //
-// Design: one CTA of 128 threads per (tile of kRows folded query rows,
-// KV head, batch row).  Query rows are folded time-major, row r -> token
-// r / g, head h*g + r % g, so the g heads that share a KV head share every
-// K/V tile the CTA loads, and all rows of a tile have (nearly) the same
-// causal and window limits.  The CTA walks only the KV tiles that can
-// contribute to its rows (the TPU kernel's pl.when skip, here as loop
-// bounds) and masks the ragged edge itself, so any Tq and S work.  Each
-// K/V tile of kKeys keys is staged in shared memory in fp32 (rows padded
-// to D + 4 floats: the float4 reads of 8 neighbouring keys fall in
-// distinct banks).  Eight threads own one query row: each scores 4 keys
-// of the tile, the row's max and sum are taken with warp shuffles (no
-// barrier), and each thread keeps D / 8 output columns of the row in
-// registers, reading the probabilities of the other keys by shuffle.
-// Queries are scaled before the dot, as in the TPU kernel; the softmax is
-// online and in fp32; a masked key contributes exactly zero, and a row
-// with no valid key emits zeros (as ref.attention does).
+// bf16 design (tensor cores, mma.sync): one CTA of 4 warps per (tile of
+// kRows = 64 folded query rows, KV head, batch row), 16 rows a warp.
+// Query rows are folded time-major, row r -> token r / g, head
+// h*g + r % g, so the g heads that share a KV head share every K/V tile
+// the CTA stages, and all rows of a tile have (nearly) the same causal
+// and window limits.  The CTA walks only the KV tiles that can reach its
+// rows (the TPU kernel's pl.when skip, here as loop bounds); a warp masks
+// in registers only the tiles that cross its rows' limits or the ragged
+// end of S, so any Tq, S and q_offset work.  Tiles of K and V (64 keys
+// at D 128, 32 at D 256) are staged in bf16 in shared memory by 16-byte
+// cp.async copies, double-buffered (tile i + 1 is in flight while tile i
+// is computed); rows are padded by 16 bytes so the eight row addresses
+// of every ldmatrix fall in distinct banks.  Q is staged once per CTA, unscaled:
+// at D 128 each warp holds its 16 rows as mma A-fragments in registers;
+// at D 256 those would take 64 more registers a thread and spill, so the
+// fragments are read from shared memory by ldmatrix on every tile.
+// S = Q K^T runs as mma.sync m16n8k16 bf16 x bf16 with f32 accumulators
+// (K fragments by ldmatrix from key rows; bf16 products are exact in f32,
+// so this is the TPU's f32 dot up to summation order), and scale is
+// applied to the f32 scores.  The TPU kernel scales q before the dot:
+// that is the same number at D 256 (scale 1/16, exact) and one rounding
+// apart at D 128.  The online softmax runs in f32 on the accumulator
+// fragments (exp2 of the log2(e)-scaled scores); a row's max and sum are
+// reduced over the 4 lanes that hold it by shuffles.  P reuses the S
+// accumulator layout as the A-fragment of the PV product, split in f32
+// into hi = bf16(P) and lo = bf16(P - hi): hi V + lo V, two mma.sync into
+// the f32 output accumulator, keeps the TPU kernel's f32 P V to ~2^-16 of
+// |P| (one bf16 P would round it at 2^-9 and move the bf16 outputs).
+// V fragments come from V rows by ldmatrix.trans.  A masked key
+// contributes exactly zero, and a row with no valid key emits zeros (as
+// ref.attention does); its max stays -inf, so exp2 is taken against 0.
+// The output accumulator is D / 2 f32 registers a thread: at D 256, 64-key
+// tiles (32 more score registers) spill at ptxas's 255-register limit,
+// hence 32-key tiles there.  `nvcc -Xptxas -v` must show no spill stores
+// for the bf16 instantiations (chip_smoke.py's build phase checks it).
+//
+// What it still lacks: wgmma (the only way to the card's full
+// tensor-core rate; mma.sync issues one warp's 16x8x16 product at a
+// time), TMA copies, and warp specialisation (one producer warp keeping
+// the K/V ring full while consumer warpgroups compute).
+//
+// float32 inputs keep the first version's body (CUDA cores, fp32): no
+// full-width path launches it; the card checks hold it.  One CTA of 128
+// threads per 16 folded query rows; each K/V tile of 32 keys is staged in
+// shared memory in fp32 (rows padded to D + 4 floats); eight threads own
+// one query row, each scoring 4 keys of the tile, with the row's max and
+// sum taken by warp shuffles, and keep D / 8 output columns of the row in
+// registers.  Queries are scaled before the dot, as in the TPU kernel;
+// the softmax is online and in fp32, and masks as the bf16 body does.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -43,16 +75,9 @@ constexpr int kLanesPerRow = kThreads / kRows;   // 8
 constexpr int kKeysPerLane = kKeys / kLanesPerRow;  // 4
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // Unpack one 16-byte vector of T into fp32 and store it (scaled) at dst.
@@ -241,6 +266,334 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+// -- bf16: tensor cores (mma.sync), K/V double-buffered by cp.async ---------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 128;      // 4 warps
+constexpr int kRows = 64;          // folded query rows per CTA, 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; a row past the edge is zero-filled
+// (src-size 0), so no NaN bits reach the products.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) -> bf16 pairs hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack(h);
+  lo = pack(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The fragment layouts are those of mma.m16n8k16 (PTX ISA): lane = 4 *
+// gid + tig holds accumulator rows gid and gid + 8, columns 2 * tig and
+// 2 * tig + 1 of each 8-column n-tile.
+template <int D, int kKeys>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ out,
+                            int hq, int hkv, int tq, int s_len, int causal,
+                            int window, int q_offset, float scale_log2) {
+  constexpr int kLd = D + 8;            // padded smem row, in elements
+  constexpr int kChunks = D / 8;        // 16-byte chunks a row
+  constexpr int kTilesS = kKeys / 8;    // S n-tiles a warp
+  constexpr int kTilesO = D / 8;        // output n-tiles a warp
+  constexpr bool kQInRegs = D <= 128;
+  static_assert(kKeys % 16 == 0 && D % 16 == 0, "mma tile shape");
+  static_assert(kRows * kChunks % kThreads == 0, "Q staging");
+  static_assert(kKeys * kChunks % kThreads == 0, "K/V staging");
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = hq / hkv;
+  const int n_rows = g * tq;
+  // the last row tiles reach the most keys under a causal mask: start them
+  // first so the short ones fill the tail of the grid
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int rows = min(kRows, n_rows - row0);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kRows, kLd]
+  bf16* ks = qs + kRows * kLd;                    // [2, kKeys, kLd]
+  bf16* vs = ks + 2 * kKeys * kLd;                // [2, kKeys, kLd]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // KV range any row of the CTA can reach
+  const int qpos_lo = row0 / g + q_offset;
+  const int qpos_hi = (row0 + rows - 1) / g + q_offset;
+  int k_begin = 0, k_end = s_len;
+  if (window >= 0) k_begin = max(0, qpos_lo - window + 1);
+  if (causal) k_end = min(s_len, qpos_hi + 1);
+  const int kt_begin = k_begin / kKeys;
+  const int kt_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : kt_begin;
+
+  // valid keys of this thread's two rows: kmin[i] <= key <= kmax[i]
+  int kmin[2], kmax[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = (row0 + 16 * warp + gid + 8 * i) / g + q_offset;
+    kmin[i] = window >= 0 ? qpos - window + 1 : 0;
+    kmax[i] = causal ? min(qpos, s_len - 1) : s_len - 1;
+  }
+  // keys every row of the warp reaches: a tile inside [free_lo, free_hi]
+  // needs no mask
+  const int wq_lo = (row0 + 16 * warp) / g + q_offset;
+  const int wq_hi = (row0 + 16 * warp + 15) / g + q_offset;
+  const int free_lo = window >= 0 ? wq_hi - window + 1 : 0;
+  const int free_hi = causal ? min(wq_lo, s_len - 1) : s_len - 1;
+
+  const size_t kv_base = (static_cast<size_t>(b) * hkv + h) * s_len;
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * kKeys;
+    bf16* kd = ks + stage * kKeys * kLd;
+    bf16* vd = vs + stage * kKeys * kLd;
+#pragma unroll
+    for (int it = 0; it < kKeys * kChunks / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = k0 + r < s_len;
+      const size_t src = (kv_base + (ok ? k0 + r : 0)) * D + c;
+      cp_async16(smem_addr(kd + r * kLd + c), k + src, ok);
+      cp_async16(smem_addr(vd + r * kLd + c), v + src, ok);
+    }
+  };
+
+  float o[kTilesO][4];
+#pragma unroll
+  for (int j = 0; j < kTilesO; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  // ldmatrix lane addresses (bytes): Q rows of this warp for A fragments,
+  // key rows for K's B fragments, key rows (transposed) for V's
+  const int mat = lane >> 3, mrow = lane & 7;
+  const uint32_t q_lane = smem_addr(
+      qs + (16 * warp + (mat & 1) * 8 + mrow) * kLd + (mat >> 1) * 8);
+  const uint32_t k_lane =
+      smem_addr(ks + ((mat >> 1) * 8 + mrow) * kLd + (mat & 1) * 8);
+  const uint32_t v_lane =
+      smem_addr(vs + ((mat & 1) * 8 + mrow) * kLd + (mat >> 1) * 8);
+  constexpr uint32_t kStageBytes = kKeys * kLd * sizeof(bf16);
+  uint32_t qf[kQInRegs ? D / 16 : 1][4];
+
+  if (kt_begin < kt_end) {
+    // Q once per CTA, then the first K/V tile, in one copy group
+#pragma unroll
+    for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const int row = row0 + r;
+      const bool ok = r < rows;
+      const size_t src =
+          ok ? ((static_cast<size_t>(b) * hq + h * g + row % g) * tq +
+                row / g) * D + c
+             : 0;
+      cp_async16(smem_addr(qs + r * kLd + c), q + src, ok);
+    }
+    load_kv(kt_begin, 0);
+    cp_async_commit();
+  }
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {
+      load_kv(kt + 1, stage ^ 1);   // stage ^ 1 was freed by the last barrier
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kQInRegs) {
+      if (kt == kt_begin) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], q_lane + kk * 32);
+      }
+    }
+    const uint32_t k_tile = k_lane + stage * kStageBytes;
+    const uint32_t v_tile = v_lane + stage * kStageBytes;
+
+    // S = Q K^T over this tile, f32 accumulators
+    float s[kTilesS][4];
+#pragma unroll
+    for (int j = 0; j < kTilesS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQInRegs) {
+        a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
+      } else {
+        ldsm_x4(a, q_lane + kk * 32);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kKeys / 16; ++jj) {
+        uint32_t bk[4];
+        ldsm_x4(bk, k_tile + (jj * 16 * kLd + kk * 16) * sizeof(bf16));
+        mma_bf16(s[2 * jj], a, bk[0], bk[1]);
+        mma_bf16(s[2 * jj + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale (log2 domain) and mask in registers where the tile crosses a
+    // limit of the warp's rows or the end of S
+    const int k0 = kt * kKeys;
+    const bool need_mask = k0 < free_lo || k0 + kKeys - 1 > free_hi;
+#pragma unroll
+    for (int j = 0; j < kTilesS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (need_mask) {
+          const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
+          if (kpos < kmin[e >> 1] || kpos > kmax[e >> 1]) x = -INFINITY;
+        }
+        s[j][e] = x;
+      }
+    }
+
+    // online softmax in f32: rows gid (e = 0, 1) and gid + 8 (e = 2, 3)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kTilesS; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[i], mx);
+      // no valid key yet: subtract 0, so -inf - -inf never happens
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m_run[i] - m_use);   // 0 while m_run = -inf
+      m_run[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTilesS; ++j) {
+        s[j][2 * i] = exp2f(s[j][2 * i] - m_use);
+        s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - m_use);
+        sum += s[j][2 * i] + s[j][2 * i + 1];
+      }
+      l_run[i] = l_run[i] * corr + sum;   // this lane's part of the row sum
+#pragma unroll
+      for (int j = 0; j < kTilesO; ++j) {
+        o[j][2 * i] *= corr;
+        o[j][2 * i + 1] *= corr;
+      }
+    }
+
+    // O += P V, P split into bf16 hi + lo; the S fragments of keys
+    // 16kk..16kk+15 are P's A-fragment for that k-step
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, v_tile + (kk * 16 * kLd + dd * 16) * sizeof(bf16));
+        mma_bf16(o[2 * dd], hi, bv[0], bv[1]);
+        mma_bf16(o[2 * dd], lo, bv[0], bv[1]);
+        mma_bf16(o[2 * dd + 1], hi, bv[2], bv[3]);
+        mma_bf16(o[2 * dd + 1], lo, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();   // every reader of this stage is done
+  }
+
+  // out = acc / l, zeros where no key was valid
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = row0 + 16 * warp + gid + 8 * i;
+    if (r >= n_rows) continue;
+    const float den = l == 0.f ? 1.f : l;   // o is 0 there
+    bf16* dst = out + ((static_cast<size_t>(b) * hq + h * g + r % g) * tq +
+                       r / g) * D + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < kTilesO; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          o[j][2 * i] / den, o[j][2 * i + 1] / den);
+    }
+  }
+}
+
+template <int D, int kKeys>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int hq, int hkv, int tq, int s_len, int causal, int window,
+           int q_offset, float scale, void* stream) {
+  constexpr size_t smem = sizeof(bf16) * (kRows + 4 * kKeys) * (D + 8);
+  auto kernel = flash_attention_bf16_kernel<D, kKeys>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row_tiles = ((hq / hkv) * tq + kRows - 1) / kRows;
+  const dim3 grid(row_tiles, hkv, b);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), hq, hkv, tq,
+      s_len, causal, window, q_offset, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int hq, int hkv, int tq, int s_len, int causal, int window,
@@ -261,6 +614,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// keys a K/V tile of the bf16 kernel holds, by head_dim
+constexpr int kKeysD128 = 64;
+constexpr int kKeysD256 = 32;
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int b,
@@ -296,8 +653,11 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, b, hq, hkv, tq, s_len, d, causal,
                            window, q_offset, scale, stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, tq, s_len, d,
-                                   causal, window, q_offset, scale, stream);
+  if (dtype == 1 && d == 128)
+    return tc::launch<128, kKeysD128>(q, k, v, out, b, hq, hkv, tq, s_len,
+                                      causal, window, q_offset, scale, stream);
+  if (dtype == 1 && d == 256)
+    return tc::launch<256, kKeysD256>(q, k, v, out, b, hq, hkv, tq, s_len,
+                                      causal, window, q_offset, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -220,6 +220,38 @@ def test_launch_count_exact_across_threads():
     assert wrapper.launches == 8 * 2000
 
 
+#: ``nvcc -Xptxas -v`` output as ptxas prints it for two kernels
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 244 registers, used 1 barriers
+ptxas info    : Function properties for _Z3barP13__nv_bfloat16
+    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+"""
+
+
+def test_spill_stores_reads_each_kernel_of_a_ptxas_report():
+    assert build.spill_stores(PTXAS_LOG) == {"_Z3fooPf": 0,
+                                             "_Z3barP13__nv_bfloat16": 12}
+    assert build.spill_stores("") == {}
+
+
+def test_build_all_reads_the_kept_log_of_a_built_library(tmp_path,
+                                                         monkeypatch):
+    """A library built by an earlier process is reused without nvcc, and
+    its ptxas report is read from the log kept beside it."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "build_logs", {})
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    lib = build._target("flash_attention")
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text(PTXAS_LOG)
+    assert build.build_all(["flash_attention"]) == {"flash_attention": lib}
+    assert build.build_logs == {"flash_attention": PTXAS_LOG}
+
+
 # -- on the card -----------------------------------------------------------------
 
 @pytest.mark.parametrize("n", [1, 255, 4097])
@@ -264,6 +296,19 @@ def test_cuda_paged_kernels_match_plain(cuda, dtype, atol, rtol, t):
     (12, 2, 128, 40, 70, False, None, 0),     # non-causal
     (16, 1, 256, 300, 300, True, 64, 0),      # recurrentgemma, window
     (16, 1, 256, 4, 10, True, 8, 14),         # rows with no valid key
+    # the bf16 body's tile edges: 64 folded rows a CTA, 64-key (D 128) and
+    # 32-key (D 256) K/V tiles
+    (12, 2, 128, 63, 63, True, None, 0),
+    (12, 2, 128, 64, 64, True, None, 0),
+    (12, 2, 128, 65, 65, True, None, 0),
+    (12, 2, 128, 129, 129, True, None, 0),
+    (16, 1, 256, 63, 63, True, None, 0),
+    (16, 1, 256, 65, 65, True, None, 0),
+    (16, 1, 256, 129, 129, True, None, 0),
+    (12, 2, 128, 65, 129, True, None, 37),    # offset off the tile grid
+    (16, 1, 256, 63, 129, True, None, 37),
+    (16, 1, 256, 300, 300, True, 8, 0),       # window narrower than a tile
+    (16, 1, 256, 2000, 2000, True, 2048, 0),  # recurrentgemma full width
 ])
 def test_cuda_flash_kernel_matches_plain(cuda, dtype, atol, rtol, hq, hkv, d,
                                          tq, s, causal, window, q_offset):
