@@ -8,18 +8,16 @@ headers), so ``nvcc`` compiles it in seconds:
 
 The library is built at first use into ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of its source and flags so an edited
-source is rebuilt and an unchanged one is reused; ``nvcc``'s output is
-kept beside it (``.log``).  :func:`build_all` starts one ``nvcc`` per
-source at once.  Pointers are passed as ``c_void_p``, and each C entry
-point returns ``cudaGetLastError()`` after its launch; :func:`check`
-raises on anything but 0.
+source is rebuilt and an unchanged one is reused.  :func:`build_all`
+starts one ``nvcc`` per source at once.  Pointers are passed as
+``c_void_p``, and each C entry point returns ``cudaGetLastError()`` after
+its launch; :func:`check` raises on anything but 0.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import threading
@@ -30,11 +28,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags for one source on top of NVCC_FLAGS.  flash_attention's bf16
+#: kernels keep their output accumulator in registers, so ptxas refuses
+#: a build of it that spills.
+SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-warn-spills,-Werror")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: ``nvcc``'s output (``-Xptxas -v``: registers, shared memory, spills)
-#: for each library this process built or found built
+#: for each library built by this process
 build_logs: Dict[str, str] = {}
 
 
@@ -52,9 +54,13 @@ def find_nvcc() -> Optional[str]:
     return shutil.which("nvcc")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -62,7 +68,7 @@ def _start(name: str, nvcc: str) -> subprocess.Popen:
     out = _target(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     return subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -74,7 +80,6 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
     if proc.returncode != 0:
         raise KernelBuildError(
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
-    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -103,28 +108,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
                     errors.append(str(e))
             if errors:
                 raise KernelBuildError("\n".join(errors))
-        for n in names:
-            log = _target(n).with_suffix(".log")
-            if n not in build_logs and log.exists():
-                build_logs[n] = log.read_text()
     return {n: _target(n) for n in names}
-
-
-def spill_stores(log: str) -> Dict[str, int]:
-    """``{kernel: bytes of spill stores}`` from ``nvcc -Xptxas -v``
-    output, whose ``Function properties for <kernel>`` line is followed by
-    ``<n> bytes stack frame, <s> bytes spill stores, ...``."""
-    spills, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name is not None:
-            spills[name] = int(m.group(1))
-            name = None
-    return spills
 
 
 def load(name: str) -> ctypes.CDLL:

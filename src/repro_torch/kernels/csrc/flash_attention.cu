@@ -45,8 +45,9 @@
 // ref.attention does); its max stays -inf, so exp2 is taken against 0.
 // The output accumulator is D / 2 f32 registers a thread: at D 256, 64-key
 // tiles (32 more score registers) spill at ptxas's 255-register limit,
-// hence 32-key tiles there.  `nvcc -Xptxas -v` must show no spill stores
-// for the bf16 instantiations (chip_smoke.py's build phase checks it).
+// hence 32-key tiles there.  This file is built with
+// `-Xptxas -warn-spills,-Werror` (kernels/build.py), so a spill fails the
+// build.
 //
 // What it still lacks: wgmma (the only way to the card's full
 // tensor-core rate; mma.sync issues one warp's 16x8x16 product at a

@@ -10,6 +10,12 @@ its K/V tile size, for one CTA's 64 folded query rows at both full-width
 head groups, and hold the result against the plain version's f32 output
 (``flash_attention_plain``) at the JAX kernel tests' f32 tolerances: the
 split stays within them, one bf16 P does not.
+
+They check the design's arithmetic, not the CUDA kernel: the kernel itself
+is held by the card-only ``test_cuda_flash_kernel_matches_plain`` and by
+``chip_smoke.py``'s ``flash_kernel`` phase, whose share of bf16 outputs
+that differ from the plain version's is the measure of this split on the
+card.
 """
 import numpy as np
 import pytest

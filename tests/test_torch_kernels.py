@@ -220,36 +220,18 @@ def test_launch_count_exact_across_threads():
     assert wrapper.launches == 8 * 2000
 
 
-#: ``nvcc -Xptxas -v`` output as ptxas prints it for two kernels
-PTXAS_LOG = """\
-ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
-ptxas info    : Function properties for _Z3fooPf
-    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 244 registers, used 1 barriers
-ptxas info    : Function properties for _Z3barP13__nv_bfloat16
-    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
-ptxas info    : Used 255 registers, used 1 barriers
-"""
-
-
-def test_spill_stores_reads_each_kernel_of_a_ptxas_report():
-    assert build.spill_stores(PTXAS_LOG) == {"_Z3fooPf": 0,
-                                             "_Z3barP13__nv_bfloat16": 12}
-    assert build.spill_stores("") == {}
-
-
-def test_build_all_reads_the_kept_log_of_a_built_library(tmp_path,
-                                                         monkeypatch):
-    """A library built by an earlier process is reused without nvcc, and
-    its ptxas report is read from the log kept beside it."""
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(build, "build_logs", {})
-    monkeypatch.setattr(build, "find_nvcc", lambda: None)
-    lib = build._target("flash_attention")
-    lib.write_bytes(b"")
-    lib.with_suffix(".log").write_text(PTXAS_LOG)
-    assert build.build_all(["flash_attention"]) == {"flash_attention": lib}
-    assert build.build_logs == {"flash_attention": PTXAS_LOG}
+def test_flash_build_refuses_spills_and_keys_its_library_by_its_flags(
+        monkeypatch):
+    """ptxas turns a spill in flash_attention.cu into an error, and the
+    library's name hashes the flags it was built with, so a library
+    built without that check is not reused."""
+    flags = build._flags("flash_attention")
+    assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+    assert flags[-2:] == ("-Xptxas", "-warn-spills,-Werror")
+    assert build._flags("paged_attention") == build.NVCC_FLAGS
+    before = build._target("flash_attention")
+    monkeypatch.setattr(build, "SOURCE_FLAGS", {})
+    assert build._target("flash_attention") != before
 
 
 # -- on the card -----------------------------------------------------------------
