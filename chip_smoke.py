@@ -57,6 +57,9 @@ HQ, HKV, HD, BS = 12, 2, 128, 16
 PROMPT_LENS = (16, 40, 64, 97, 128, 200, 256, 331, 400)
 NEW_TOKENS = 32
 HYBRID_PROMPTS = (0, 3, 5, 7, 8)    # PROMPT_LENS 16, 97, 200, 331, 400
+# the paged rows' contexts halfway through the serve wave (prompts 2-9 at
+# 16 of their 32 new tokens): the attention timing shape
+ATTN_CTX = tuple(n + NEW_TOKENS // 2 for n in PROMPT_LENS[1:])
 LONG_PROMPT, LONG_NEW = 2000, 100   # decode crosses the 2,048 window
 RWKV_LONG_NEW = 64                  # rwkv6-7b's 2,000-token request
 SCORE_TOL = 0.02    # mean log-prob, kernel path vs plain replay
@@ -154,8 +157,8 @@ def main() -> int:
 
     @Phase("build")
     def _build():
-        # ptxas refuses a flash_attention build that spills
-        # (build.SOURCE_FLAGS), so this phase fails on a spill there
+        # ptxas refuses a flash_attention or paged_attention build that
+        # spills (build.SOURCE_FLAGS), so this phase fails on a spill there
         libs = build.build_all()
         ptxas = sorted({ln.strip() for log in build.build_logs.values()
                         for ln in log.splitlines()
@@ -208,27 +211,51 @@ def _bits(t):
         t.element_size()])
 
 
+#: (N, stride, lead rows, plan offset): pages of 64-byte records, a stride
+#: that is not a multiple of 16, a row slice that starts off a 16-byte
+#: boundary (the page begins `lead` rows into a larger one), and rows too
+#: wide to stage in shared memory (decoded in place), the plan shifted to
+#: their end
+DECODE_PAGES = tuple((n, 64, 0, 0) for n in (1, 7, 255, 1000, 4097)) + (
+    (4097, 67, 1, 0), (255, 100, 3, 20), (3, 50_000, 1, 49_900))
+
+
+#: (wire, out) of a one-field plan that is the page's own bytes when it
+#: spans the row: the kernel copies such a column (the served token pages)
+DECODE_BITCASTS = (("uint32", "int32"), ("int32", "uint32"),
+                   ("float32", "float32"), ("uint16", "uint16"),
+                   ("uint8", "uint8"))
+
+
 def check_decode(torch, bd, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cases = 0
-    for n in (1, 7, 255, 1000, 4097):
-        page = torch.randint(0, 256, (n, 64), generator=gen, device=dev,
-                             dtype=torch.int32).to(torch.uint8)
-        got = bd.decode_columns(page, DECODE_PLAN)
-        want = bd.decode_columns_plain(page, DECODE_PLAN)
-        for f, a, b in zip(DECODE_PLAN, got, want):
+    for n, stride, lead, shift in DECODE_PAGES:
+        big = torch.randint(0, 256, (n + lead, stride), generator=gen,
+                            device=dev, dtype=torch.int32).to(torch.uint8)
+        page = big[lead:]
+        plan = [(off + shift, cnt, wd, od)
+                for off, cnt, wd, od in DECODE_PLAN]
+        bitcasts = [(0, stride // bd._WIDTH[wd], wd, od)
+                    for wd, od in DECODE_BITCASTS
+                    if stride % bd._WIDTH[wd] == 0]
+        what = f"N={n} stride {stride} at byte {page.data_ptr() % 16} mod 16"
+        got = bd.decode_columns(page, plan)
+        want = bd.decode_columns_plain(page, plan)
+        for f, a, b in zip(plan, got, want):
             if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
-                raise AssertionError(f"decode_columns differs at N={n} {f}")
+                raise AssertionError(f"decode_columns differs at {what} {f}")
             cases += 1
-        for off, cnt, wd, od in DECODE_PLAN:
+        for off, cnt, wd, od in plan + bitcasts:
             a = bd.decode_column(page, offset=off, count=cnt, wire_dtype=wd,
                                  out_dtype=od)
             b = bd.decode_columns_plain(page, [(off, cnt, wd, od)])[0]
             if not torch.equal(_bits(a), _bits(b)):
-                raise AssertionError(f"decode_column differs at N={n} {wd}")
+                raise AssertionError(f"decode_column differs at {what} {wd}")
             cases += 1
     torch.cuda.synchronize()
-    return {"cases": cases, "bit_exact": True, "max_abs_err": 0.0}
+    return {"cases": cases, "bit_exact": True, "max_abs_err": 0.0,
+            "pages": [list(p) for p in DECODE_PAGES]}
 
 
 def _pool(torch, gen, dev, n_blocks, dtype):
@@ -248,60 +275,111 @@ def _close(torch, a, b, atol, rtol):
     return ok, float(err.max())
 
 
+#: (table width M, pool blocks, decode contexts, prefill starts) at the
+#: main path's heads and block size, B 8: contexts up to 1,024 keys, and up
+#: to 2,048 (the served cache stops at 1,024).  Each has a ctx == 0 row,
+#: and a padded decode row beside the prefill chunks (rows 1 and 7).
+ATTN_TABLES = ((64, 513, (0, 1, 17, 100, 255, 400, 777, 1024),
+                (0, 5, 64, 300, 500, 900, 1000, 37)),
+               (128, 1025, (0, 1025, 1100, 1500, 2000, 2047, 2048, 1024),
+                (0, 1000, 1500, 1990, 2016, 1024, 1063, 1900)))
+
+
+def _attn_inputs(torch, gen, dev, b, t, m, n_blocks, dtype):
+    kp, vp = _pool(torch, gen, dev, n_blocks, dtype)
+    tables = _tables(torch, gen, dev, b, m, n_blocks)
+    q = torch.randn((b, HQ, t, HD), generator=gen, device=dev).to(dtype)
+    return q, kp, vp, tables
+
+
 def check_attention(torch, pa, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    b, m, n_blocks = 8, 64, 513
+    b = 8
     out = {}
     for dtype, atol, rtol in ((torch.bfloat16, ATTN_ATOL, ATTN_RTOL),
                               (torch.float32, F32_ATOL, F32_RTOL)):
-        kp, vp = _pool(torch, gen, dev, n_blocks, dtype)
-        tables = _tables(torch, gen, dev, b, m, n_blocks)
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        # decode: mixed context lengths, one ctx == 0 row (emits zeros)
-        ctx = torch.tensor([0, 1, 17, 100, 255, 400, 777, 1024],
-                           dtype=torch.int32, device=dev)
-        q = torch.randn((b, HQ, HD), generator=gen, device=dev).to(dtype)
-        got = pa.paged_attention(q, kp, vp, tables, ctx)
-        want = pa.paged_attention_plain(q, kp, vp, tables, ctx)
-        ok, err = _close(torch, got, want, atol, rtol)
-        if not ok or bool(got[0].any()):
-            raise AssertionError(f"decode {tag}: max err {err}, ctx==0 row "
-                                 f"zero: {not bool(got[0].any())}")
-        out[f"decode_{tag}_max_abs_err"] = err
-        # unlisted blocks never leak into the output
-        listed = torch.zeros(n_blocks, dtype=torch.bool, device=dev)
-        listed[tables.long().reshape(-1)] = True
-        ks, vs = kp.clone(), vp.clone()
-        ks[~listed] = 1e3
-        vs[~listed] = -1e3
-        if not torch.equal(pa.paged_attention(q, ks, vs, tables, ctx), got):
-            raise AssertionError(f"decode {tag}: unlisted blocks leaked")
-        # prefill / mixed (T = 32) and verify (T = spec_len + 1 = 5) tiles:
-        # decode rows padded with repeated positions beside prefill chunks
-        for t in (32, 5):
-            starts = torch.tensor([0, 5, 64, 300, 500, 900, 1000, 37],
-                                  device=dev)
-            qpos = (starts[:, None]
-                    + torch.arange(t, device=dev)[None]).clamp(max=1023)
-            qpos[1] = 19                      # a padded decode row
-            qpos[7] = 0                       # decode at the first position
-            qpos = qpos.to(torch.int32)
-            q = torch.randn((b, HQ, t, HD), generator=gen,
-                            device=dev).to(dtype)
-            got = pa.paged_prefill_attention(q, kp, vp, tables, qpos)
-            want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
+        for m, n_blocks, ctx, starts in ATTN_TABLES:
+            tag_m = f"{tag}_keys{m * BS}"
+            q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, 1, m,
+                                             n_blocks, dtype)
+            q = q[:, :, 0]
+            # decode: mixed context lengths, one ctx == 0 row (emits zeros)
+            ctx = torch.tensor(ctx, dtype=torch.int32, device=dev)
+            got = pa.paged_attention(q, kp, vp, tables, ctx)
+            want = pa.paged_attention_plain(q, kp, vp, tables, ctx)
             ok, err = _close(torch, got, want, atol, rtol)
-            if not ok:
-                raise AssertionError(f"prefill T={t} {tag}: max err {err}")
-            out[f"prefill_t{t}_{tag}_max_abs_err"] = err
-            if not torch.equal(
-                    pa.paged_prefill_attention(q, ks, vs, tables, qpos), got):
-                raise AssertionError(f"prefill T={t} {tag}: unlisted "
-                                     f"blocks leaked")
+            if not ok or bool(got[0].any()):
+                raise AssertionError(
+                    f"decode {tag_m}: max err {err}, ctx==0 row zero: "
+                    f"{not bool(got[0].any())}")
+            out[f"decode_{tag_m}_max_abs_err"] = err
+            # unlisted blocks never leak into the output
+            listed = torch.zeros(n_blocks, dtype=torch.bool, device=dev)
+            listed[tables.long().reshape(-1)] = True
+            ks, vs = kp.clone(), vp.clone()
+            ks[~listed] = 1e3
+            vs[~listed] = -1e3
+            if not torch.equal(pa.paged_attention(q, ks, vs, tables, ctx),
+                               got):
+                raise AssertionError(f"decode {tag_m}: unlisted blocks "
+                                     f"leaked")
+            # prefill / mixed (T = 32) and verify (T = spec_len + 1 = 5)
+            # tiles: decode rows padded with repeated positions beside
+            # prefill chunks
+            for t in (32, 5):
+                qpos = (torch.tensor(starts, device=dev)[:, None]
+                        + torch.arange(t, device=dev)[None]).clamp(
+                            max=m * BS - 1)
+                qpos[1] = 19                      # a padded decode row
+                qpos[7] = 0                       # decode at position 0
+                qpos = qpos.to(torch.int32)
+                q = torch.randn((b, HQ, t, HD), generator=gen,
+                                device=dev).to(dtype)
+                got = pa.paged_prefill_attention(q, kp, vp, tables, qpos)
+                want = pa.paged_prefill_attention_plain(q, kp, vp, tables,
+                                                        qpos)
+                ok, err = _close(torch, got, want, atol, rtol)
+                if not ok:
+                    raise AssertionError(f"prefill T={t} {tag_m}: max err "
+                                         f"{err}")
+                out[f"prefill_t{t}_{tag_m}_max_abs_err"] = err
+                if not torch.equal(pa.paged_prefill_attention(
+                        q, ks, vs, tables, qpos), got):
+                    raise AssertionError(f"prefill T={t} {tag_m}: unlisted "
+                                         f"blocks leaked")
+    # the share of bf16 outputs that differ from the plain version's at the
+    # timing shape, held to flash's limit (the same f32 sums, P split into
+    # bf16 hi + lo, one rounding to bf16)
+    m = _table_width(ATTN_CTX)
+    for t in (1, 5, 32):
+        q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, t, m, 513,
+                                         torch.bfloat16)
+        qpos = torch.tensor([[c - t + i for i in range(t)] for c in ATTN_CTX],
+                            dtype=torch.int32, device=dev)
+        got = pa.paged_prefill_attention(q, kp, vp, tables, qpos) if t > 1 \
+            else pa.paged_attention(q[:, :, 0], kp, vp, tables,
+                                    qpos[:, 0] + 1)[:, :, None]
+        want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
+        share = float((got != want).float().mean())
+        out[f"bf16_mismatch_share@T{t}"] = share
+        if share > MAX_BF16_MISMATCH:
+            raise AssertionError(
+                f"paged bf16 T {t}: {share:.4%} of outputs differ from the "
+                f"plain version's (limit {MAX_BF16_MISMATCH:.0%})")
     torch.cuda.synchronize()
     out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
     out["tolerance_f32"] = {"atol": F32_ATOL, "rtol": F32_RTOL}
+    out["max_bf16_mismatch"] = MAX_BF16_MISMATCH
     return out
+
+
+def _table_width(ctx):
+    """The power-of-two table width that holds the longest context."""
+    m = 1
+    while m * BS < max(ctx):
+        m <<= 1
+    return m
 
 
 #: (Tq, S, causal, window, q_offset): prefill shapes (Tq == S, ragged),
@@ -671,7 +749,6 @@ def serve(torch, bd, pa, dev, state):
         by_width.setdefault(w, []).append(s * 1e3)
     n_tokens = sum(r["new_tokens"] for r in out)
     state["launches"] = launches
-    state["serve_ctx"] = [len(p) + NEW_TOKENS // 2 for p in prompts[1:]]
     state["serve_tokens"] = toks[:len(prompts)]
     return {"requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
             "tokens_per_s": n_tokens / wall, "launches": launches,
@@ -1131,6 +1208,19 @@ def _cold_ms(torch, fn, flush, iters=30):
     return ms[len(ms) // 2]
 
 
+def _host_us(torch, fn, calls=2000):
+    """Wall time per call in µs over many calls with one synchronize at
+    the end: the wrapper's host time wherever the card keeps up with the
+    launches, as it does for kernels of a few µs."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def _attn_bound(qpos_rows, t, m, itemsize=2):
     """Least time for one paged-attention call: bytes (q in, out, each
     row's needed K/V once, tables, positions) over HBM bandwidth vs the
@@ -1190,7 +1280,7 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
     n_tok = max(PROMPT_LENS)
     page = torch.randint(0, 256, (1, 4 * n_tok), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
-    plan = [(0, n_tok, "uint32", "int32")]
+    plan = ((0, n_tok, "uint32", "int32"),)   # a tuple, as ingest passes
     nbytes = 2 * page.numel()
     def library():
         # one u32 -> i32 column spanning the whole row is a bitcast: one
@@ -1210,7 +1300,10 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
             torch, lambda: bd.decode_columns_plain(page, plan), flush),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": _cold_ms(torch, library, flush),
-        "shape": f"page [1, {4 * n_tok}] u8 -> [1, {n_tok}] int32"})
+        "host_us": _host_us(torch, lambda: bd.decode_columns(page, plan)),
+        "library_host_us": _host_us(torch, library),
+        "shape": f"page [1, {4 * n_tok}] u8 -> [1, {n_tok}] int32 (a "
+                 f"bitcast column: the kernel's copy path)"})
     # decode_column (not on the main path) at a bulk page
     bulk = torch.randint(0, 256, (65536, 64), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
@@ -1229,26 +1322,44 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
         # 16 u32 at offset 0 fill the 64-byte row: a bitcast again
         "library_ms": _cold_ms(
             torch, lambda: bulk.view(torch.int32).clone(), flush),
-        "shape": "page [65536, 64] u8 -> [65536, 16] int32 (not on the "
-                 "served path)"})
+        "host_us": _host_us(torch, lambda: bd.decode_column(bulk, **col)),
+        "library_host_us": _host_us(
+            torch, lambda: bulk.view(torch.int32).clone()),
+        "shape": "page [65536, 64] u8 -> [65536, 16] int32 (a bitcast "
+                 "column: the copy path; not on the served path)"})
+    # the staged path at the same page: a column that converts
+    f32 = dict(col, out_dtype="float32")
+    extra["bebop_decode.decode_column@65536x64_u32_to_f32"] = {
+        "ms": _cold_ms(torch, lambda: bd.decode_column(bulk, **f32), flush),
+        "plain_ms": _cold_ms(torch, lambda: bd.decode_columns_plain(
+            bulk, [(0, 16, "uint32", "float32")]), flush),
+        "bound_ms": (bulk.numel() + 65536 * 64) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "host_us": _host_us(torch, lambda: bd.decode_column(bulk, **f32))}
+    out_bytes = sum(c.element_size() * c.shape[1]
+                    for c in bd.decode_columns(bulk[:1], DECODE_PLAN))
     extra["bebop_decode.decode_columns@65536x64"] = {
         "ms": _cold_ms(torch, lambda: bd.decode_columns(bulk, DECODE_PLAN),
                        flush),
         "plain_ms": _cold_ms(torch, lambda: bd.decode_columns_plain(
-            bulk, DECODE_PLAN), flush)}
+            bulk, DECODE_PLAN), flush),
+        "bound_ms": 65536 * (64 + out_bytes) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "fields": len(DECODE_PLAN),
+        # ms holds the host's time too where the wrapper's host work (one
+        # output tensor per field) outlasts the L2 flush before the call
+        "host_us": _host_us(
+            torch, lambda: bd.decode_columns(bulk, DECODE_PLAN))}
     # attention at the serve rows' mid-generation contexts
-    ctx = state["serve_ctx"][:8]
+    ctx = list(ATTN_CTX)
     b = len(ctx)
-    m = 1
-    while m * BS < max(ctx):
-        m <<= 1
+    m = _table_width(ctx)
     n_blocks = 8 * (1024 // BS) + 1            # the default pool
     kp, vp = _pool(torch, gen, dev, n_blocks, torch.bfloat16)
     tables = _tables(torch, gen, dev, b, m, n_blocks)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
     q1 = torch.randn((b, HQ, HD), generator=gen, device=dev).to(torch.bfloat16)
     bound, by = _attn_bound([[c - 1] for c in ctx], 1, m)
-    err = state["attention_kernels"]["decode_bf16_max_abs_err"]
+    err = state["attention_kernels"]["decode_bf16_keys1024_max_abs_err"]
     kernels.append({
         "name": "paged_attention.paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1296,7 +1407,7 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
                 "launches": launches[
                     "paged_attention.paged_prefill_attention"],
                 "max_abs_err": state["attention_kernels"][
-                    "prefill_t32_bf16_max_abs_err"],
+                    "prefill_t32_bf16_keys1024_max_abs_err"],
                 "ms": entry["ms"], "plain_ms": entry["plain_ms"],
                 "bound_ms": bound, "bound_by": by, "library_ms": None,
                 "shape": f"B {b}, Hq {HQ}, Hkv {HKV}, D {HD}, bs {BS}, M {m}, "

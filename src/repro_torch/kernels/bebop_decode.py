@@ -17,7 +17,8 @@ as the TPU kernel's ``astype`` does; float wires decode to ``float32``.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+import sys
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -45,27 +46,89 @@ def default_out(wire_dtype: str) -> str:
             "uint8": "uint8", "byte": "uint8", "bool": "uint8"}[wire_dtype]
 
 
-def _check_fields(pages: torch.Tensor, fields: Sequence) -> List[Field]:
+class _Plan:
+    """A checked plan and what the kernel needs of it, built once per
+    ``fields`` tuple (:func:`_plan`): the page-independent half of every
+    call."""
+
+    def __init__(self, fields: Tuple[Field, ...]):
+        self.fields = fields
+        # the narrowest page every field fits in; a negative offset or
+        # count fits in none
+        self.min_stride = max(
+            [off + _WIDTH[wd] * cnt if off >= 0 and cnt >= 0 else sys.maxsize
+             for off, cnt, wd, _ in fields], default=0)
+        self.out_dtypes = [OUT_DTYPES[od] for *_, od in fields]
+        # fields with elements: the only ones the kernel sees
+        self.live = [i for i, f in enumerate(fields) if f[1] > 0]
+        self.packed = _PackedPlan(len(self.live), tuple(
+            _PackedField(fields[i][0], fields[i][1], WIRE_CODES[fields[i][2]],
+                         OUT_CODES[fields[i][3]]) for i in self.live))
+        self.packed_addr = ctypes.addressof(self.packed)
+
+    def check_stride(self, stride: int) -> None:
+        if stride >= self.min_stride:
+            return
+        for off, cnt, wd, _ in self.fields:
+            if off < 0 or cnt < 0 or off + _WIDTH[wd] * cnt > stride:
+                raise ValueError(f"field ({off}, {cnt}, {wd}) overruns "
+                                 f"stride {stride}")
+
+
+class _PackedField(ctypes.Structure):
+    _fields_ = [("offset", ctypes.c_int), ("count", ctypes.c_int),
+                ("wire", ctypes.c_int), ("out", ctypes.c_int)]
+
+
+class _PackedPlan(ctypes.Structure):
+    """``Plan`` in csrc/bebop_decode.cu."""
+    _fields_ = [("n_fields", ctypes.c_int),
+                ("f", _PackedField * _MAX_FIELDS)]
+
+
+#: ``fields`` tuple -> its :class:`_Plan`.  Plans are per schema, so the
+#: cache stays small; a race builds one plan twice, and either is right.
+_PLANS: Dict[tuple, _Plan] = {}
+
+
+def _plan(fields: Sequence) -> _Plan:
+    """The cached :class:`_Plan` of ``fields``, keyed by the whole tuple:
+    plans that differ in any offset, count or code never share an entry."""
+    try:
+        return _PLANS[fields]
+    except KeyError:                # new
+        alias = fields
+    except TypeError:               # unhashable (lists): key by its tuple
+        alias = None
+    key = tuple(tuple(f) for f in fields)
+    plan = _PLANS.get(key)
+    if plan is None:
+        checked = []
+        for off, cnt, wd, od in key:
+            if wd not in WIRE_CODES:
+                raise ValueError(f"unsupported wire dtype {wd}")
+            od = str(od)
+            if od not in OUT_CODES:
+                raise ValueError(f"unsupported out dtype {od}")
+            if wd in _FLOAT_WIRES and od != "float32":
+                raise ValueError(f"{wd} wire decodes to float32, not {od}")
+            checked.append((int(off), int(cnt), wd, od))
+        if len(checked) > _MAX_FIELDS:
+            raise ValueError(f"{len(checked)} fields; a plan holds "
+                             f"{_MAX_FIELDS}")
+        plan = _PLANS[key] = _Plan(tuple(checked))
+    if alias is not None:
+        _PLANS[alias] = plan
+    return plan
+
+
+def _check_fields(pages: torch.Tensor, fields: Sequence) -> _Plan:
     if pages.dim() != 2 or pages.dtype != torch.uint8:
         raise ValueError(f"pages must be [N, stride] uint8, got "
                          f"{pages.dtype} {tuple(pages.shape)}")
-    stride = pages.shape[1]
-    out: List[Field] = []
-    for off, cnt, wd, od in fields:
-        if wd not in WIRE_CODES:
-            raise ValueError(f"unsupported wire dtype {wd}")
-        od = str(od)
-        if od not in OUT_CODES:
-            raise ValueError(f"unsupported out dtype {od}")
-        if wd in _FLOAT_WIRES and od != "float32":
-            raise ValueError(f"{wd} wire decodes to float32, not {od}")
-        if off < 0 or cnt < 0 or off + _WIDTH[wd] * cnt > stride:
-            raise ValueError(f"field ({off}, {cnt}, {wd}) overruns stride "
-                             f"{stride}")
-        out.append((int(off), int(cnt), wd, od))
-    if len(out) > _MAX_FIELDS:
-        raise ValueError(f"{len(out)} fields; a plan holds {_MAX_FIELDS}")
-    return out
+    plan = _plan(fields)
+    plan.check_stride(pages.shape[1])
+    return plan
 
 
 # -- plain PyTorch version --------------------------------------------------
@@ -123,7 +186,7 @@ def decode_columns_plain(pages: torch.Tensor, fields: Sequence
                          ) -> List[torch.Tensor]:
     """Plain PyTorch version of :func:`decode_columns`, on any device."""
     return [_decode_field_plain(pages, *f)
-            for f in _check_fields(pages, fields)]
+            for f in _check_fields(pages, fields).fields]
 
 
 # -- CUDA kernel ------------------------------------------------------------
@@ -133,41 +196,31 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("bebop_decode")
     fn = lib.bebop_decode_columns
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-                       ctypes.POINTER(ctypes.c_longlong),
-                       ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(pages: torch.Tensor, fields: List[Field], wrapper
-            ) -> List[torch.Tensor]:
-    """Run the kernel and count the launch on ``wrapper``."""
+def _launch(pages: torch.Tensor, plan: _Plan, wrapper) -> List[torch.Tensor]:
+    """Run the kernel and count the launch on ``wrapper``.  Only what
+    depends on the page is done here: its pointer, N, the outputs."""
     lib = _lib()
     if not pages.is_cuda:
         raise ValueError(f"decode kernel needs a CUDA tensor, got "
                          f"{pages.device}")
     pages = pages.contiguous()
     n, stride = pages.shape
-    outs = [torch.empty((n, cnt), dtype=OUT_DTYPES[od], device=pages.device)
-            for (_, cnt, _, od) in fields]
-    live = [(f, o) for f, o in zip(fields, outs) if o.numel()]
-    if n == 0 or not live:
+    dev = pages.device
+    outs = [torch.empty((n, f[1]), dtype=dt, device=dev)
+            for f, dt in zip(plan.fields, plan.out_dtypes)]
+    if n == 0 or not plan.live:
         return outs
-    k = len(live)
-    with torch.cuda.device(pages.device):   # launch on the tensor's card
-        err = lib.bebop_decode_columns(
-            pages.data_ptr(), n, stride, k,
-            (ctypes.c_longlong * k)(*[f[0] for f, _ in live]),
-            (ctypes.c_longlong * k)(*[f[1] for f, _ in live]),
-            (ctypes.c_int * k)(*[WIRE_CODES[f[2]] for f, _ in live]),
-            (ctypes.c_int * k)(*[OUT_CODES[f[3]] for f, _ in live]),
-            (ctypes.c_void_p * k)(*[o.data_ptr() for _, o in live]),
-            torch.cuda.current_stream(pages.device).cuda_stream)
-    build.check(err, "bebop_decode_columns")
+    ptrs = (ctypes.c_void_p * len(plan.live))(
+        *[outs[i].data_ptr() for i in plan.live])
+    build.launch(lib.bebop_decode_columns, dev, plan.packed_addr,
+                 pages.data_ptr(), n, stride, ptrs)
     build.count_launch(wrapper)
     return outs
 
@@ -180,10 +233,10 @@ def decode_columns(pages: torch.Tensor, fields: Sequence
     edge).  Returns one ``[N, count]`` tensor per field.  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises.
     """
-    fields = _check_fields(pages, fields)
+    plan = _check_fields(pages, fields)
     if pages.device.type == "cpu":
-        return decode_columns_plain(pages, fields)
-    return _launch(pages, fields, decode_columns)
+        return [_decode_field_plain(pages, *f) for f in plan.fields]
+    return _launch(pages, plan, decode_columns)
 
 
 decode_columns.launches = 0
@@ -192,11 +245,11 @@ decode_columns.launches = 0
 def decode_column(pages: torch.Tensor, *, offset: int, count: int,
                   wire_dtype: str, out_dtype=None) -> torch.Tensor:
     """One fixed-width column: a one-field plan through the same kernel."""
-    fields = _check_fields(pages, [(offset, count, wire_dtype,
-                                    out_dtype or default_out(wire_dtype))])
+    plan = _check_fields(pages, ((offset, count, wire_dtype,
+                                  out_dtype or default_out(wire_dtype)),))
     if pages.device.type == "cpu":
-        return decode_columns_plain(pages, fields)[0]
-    return _launch(pages, fields, decode_column)[0]
+        return _decode_field_plain(pages, *plan.fields[0])
+    return _launch(pages, plan, decode_column)[0]
 
 
 decode_column.launches = 0

@@ -7,11 +7,12 @@ headers), so ``nvcc`` compiles it in seconds:
          -Xcompiler -fPIC -o lib<name>-<hash>.so <name>.cu
 
 The library is built at first use into ``kernels/_build/`` (listed in
-``.gitignore``), named by a hash of its source and flags so an edited
-source is rebuilt and an unchanged one is reused.  :func:`build_all`
-starts one ``nvcc`` per source at once.  Pointers are passed as
-``c_void_p``, and each C entry point returns ``cudaGetLastError()`` after
-its launch; :func:`check` raises on anything but 0.
+``.gitignore``), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and its flags, so an edited source is rebuilt and an
+unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per
+source at once.  Pointers are passed as ``c_void_p``, and each C entry
+point returns ``cudaGetLastError()`` after its launch; :func:`launch`
+calls it on the tensors' card and stream and raises on anything but 0.
 """
 from __future__ import annotations
 
@@ -24,14 +25,17 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: flags for one source on top of NVCC_FLAGS.  flash_attention's bf16
+#: flags for one source on top of NVCC_FLAGS.  The bf16 attention
 #: kernels keep their output accumulator in registers, so ptxas refuses
-#: a build of it that spills.
-SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-warn-spills,-Werror")}
+#: a build of them that spills.
+_NO_SPILLS = ("-Xptxas", "-warn-spills,-Werror")
+SOURCE_FLAGS = {"flash_attention": _NO_SPILLS, "paged_attention": _NO_SPILLS}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -59,7 +63,9 @@ def _flags(name: str) -> tuple:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -126,6 +132,20 @@ def load(name: str) -> ctypes.CDLL:
                 raise KernelBuildError(f"cannot load {path}: {e}") from e
             _libs[name] = lib
     return lib
+
+
+def launch(fn, device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with ``device``'s
+    current stream, on that card, and raise if the launch failed.  The
+    stream is passed as its raw handle: ``torch.cuda.current_stream()``
+    builds a Stream object on every call, several µs of host time."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):   # launch on the tensor's card
+            err = fn(*args, stream)
+    check(err, fn.__name__)
 
 
 def check(err: int, what: str) -> None:

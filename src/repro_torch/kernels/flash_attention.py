@@ -117,14 +117,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash attention kernel needs 16-byte-aligned "
                          "q, k and v")
-    with torch.cuda.device(q.device):   # launch on the tensor's card
-        err = lib.flash_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, hq, k.shape[1], tq, s, d, int(bool(causal)),
-            -1 if window is None else int(window), int(q_offset),
-            d ** -0.5 if scale is None else scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention")
+    build.launch(
+        lib.flash_attention, q.device,
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, hq, k.shape[1], tq, s, d, int(bool(causal)),
+        -1 if window is None else int(window), int(q_offset),
+        d ** -0.5 if scale is None else scale)
     build.count_launch(flash_attention)
     return out
 

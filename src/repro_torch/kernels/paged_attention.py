@@ -95,6 +95,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+#: head dims the kernel is built for (csrc/paged_attention.cu dispatch)
+_HEAD_DIMS = (64, 128, 256)
+
+
 def _check(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
            block_tables: torch.Tensor, d: int) -> None:
     if not (q.is_cuda and k_pool.is_cuda and v_pool.is_cuda
@@ -111,15 +115,13 @@ def _check(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if q.shape[1] % k_pool.shape[1]:
         raise ValueError(f"{q.shape[1]} q heads not a multiple of "
                          f"{k_pool.shape[1]} KV heads")
-    # the kernel moves K/V blocks as 16-byte vectors, at most 8 K and 8 V
-    # vectors per thread of 128 (csrc/paged_attention.cu kMaxVec)
-    row_bytes = d * q.element_size()
-    if row_bytes % 16 or k_pool.shape[2] * row_bytes > 16 * 128 * 8 \
-            or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError(f"kernel needs 16-byte-aligned pools, head_dim * "
-                         f"itemsize a multiple of 16 and a block of at most "
-                         f"16 KiB; got head_dim {d}, block "
-                         f"{k_pool.shape[2]}, {q.dtype}")
+    # both bodies copy q and K/V rows as 16-byte pieces
+    if d not in _HEAD_DIMS or q.data_ptr() % 16 or k_pool.data_ptr() % 16 \
+            or v_pool.data_ptr() % 16:
+        raise ValueError(
+            f"paged attention takes head_dim 64, 128 or 256 and 16-byte-"
+            f"aligned q and pools; got {q.dtype} q {tuple(q.shape)} at byte "
+            f"{q.data_ptr() % 16} mod 16, pools {tuple(k_pool.shape)}")
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -137,24 +139,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      ctx_lens, scale=scale)
     lib = _lib()
+    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
+        v_pool.contiguous()
     b, hq, d = q.shape
     _check(q, k_pool, v_pool, block_tables, d)
     n, hkv, bs, _ = k_pool.shape
-    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
-        v_pool.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     ctx = ctx_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0:
         return out
-    with torch.cuda.device(q.device):   # launch on the tensor's card
-        err = lib.paged_attention_decode(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), tables.data_ptr(), ctx.data_ptr(),
-            out.data_ptr(), b, hq, hkv, d, bs, tables.shape[1], n,
-            d ** -0.5 if scale is None else scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_attention_decode")
+    build.launch(
+        lib.paged_attention_decode, q.device,
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), tables.data_ptr(), ctx.data_ptr(),
+        out.data_ptr(), b, hq, hkv, d, bs, tables.shape[1], n,
+        d ** -0.5 if scale is None else scale)
     build.count_launch(paged_attention)
     return out
 
@@ -177,24 +177,22 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_prefill_attention_plain(q, k_pool, v_pool, block_tables,
                                              qpos, scale=scale)
     lib = _lib()
+    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
+        v_pool.contiguous()
     b, hq, t, d = q.shape
     _check(q, k_pool, v_pool, block_tables, d)
     n, hkv, bs, _ = k_pool.shape
-    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
-        v_pool.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     qp = qpos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
-    with torch.cuda.device(q.device):   # launch on the tensor's card
-        err = lib.paged_prefill_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), tables.data_ptr(), qp.data_ptr(),
-            out.data_ptr(), b, hq, hkv, t, d, bs, tables.shape[1], n,
-            d ** -0.5 if scale is None else scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_prefill_attention")
+    build.launch(
+        lib.paged_prefill_attention, q.device,
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), tables.data_ptr(), qp.data_ptr(),
+        out.data_ptr(), b, hq, hkv, t, d, bs, tables.shape[1], n,
+        d ** -0.5 if scale is None else scale)
     build.count_launch(paged_prefill_attention)
     return out
 

@@ -67,12 +67,10 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor
     h_final = torch.zeros((b, d), dtype=torch.float32, device=x.device)
     if b == 0 or t == 0 or d == 0:
         return h, h_final
-    with torch.cuda.device(x.device):   # launch on the tensor's card
-        err = lib.rglru_scan(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), a.data_ptr(), h.data_ptr(),
-            h_final.data_ptr(), b, t, d,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "rglru_scan")
+    build.launch(
+        lib.rglru_scan, x.device,
+        _DTYPE_CODES[x.dtype], x.data_ptr(), a.data_ptr(), h.data_ptr(),
+        h_final.data_ptr(), b, t, d)
     build.count_launch(rglru_scan)
     return h, h_final
 

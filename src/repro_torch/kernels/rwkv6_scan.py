@@ -168,13 +168,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or h == 0 or t == 0:
         return o, s
     strides = [x.stride(d) for x in (r, k, v, w) for d in (0, 1, 2)]
-    with torch.cuda.device(v.device):   # launch on the tensors' card
-        err = lib.rwkv6_scan(
-            _DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-            w.data_ptr(), u.data_ptr(), o.data_ptr(), s.data_ptr(),
-            b, h, t, kk, vv, *strides,
-            torch.cuda.current_stream(v.device).cuda_stream)
-    build.check(err, "rwkv6_scan")
+    build.launch(
+        lib.rwkv6_scan, v.device,
+        _DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        w.data_ptr(), u.data_ptr(), o.data_ptr(), s.data_ptr(),
+        b, h, t, kk, vv, *strides)
     build.count_launch(rwkv6_scan)
     return o, s
 

@@ -111,6 +111,45 @@ def test_decode_rejects_bad_plans():
         bd.decode_columns(page, [(0, 1, "int64", "int32")])
 
 
+@pytest.mark.parametrize("lead,stride", [(1, 67), (3, 100)])
+def test_decode_columns_plain_matches_pallas_on_row_slices(lead, stride):
+    """A page that is a row slice of a larger one, at a stride that is not
+    a multiple of 16 (the kernel stages such a page with an unaligned head
+    and tail): the plain version on the slice equals the Pallas kernel on
+    a copy of the same rows."""
+    big = np.random.default_rng(stride).integers(0, 256, (lead + 9, stride),
+                                                 dtype=np.uint8)
+    page = torch.from_numpy(big)[lead:]
+    got = bd.decode_columns(page, PLAN)
+    want = jops.decode_columns(jnp.asarray(big[lead:]), PLAN, block_n=9,
+                               impl="pallas")
+    for f, a, b in zip(PLAN, got, want):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b), err_msg=f)
+
+
+@pytest.mark.parametrize("slot", range(4))
+def test_decode_plan_cache_keys_by_whole_fields_tuple(slot):
+    """The packed plan is built once per ``fields`` tuple and cached by the
+    whole tuple: two plans that differ in one offset, count, wire or out
+    code never share an entry."""
+    one = ((0, 2, "uint32", "int32"), (8, 4, "uint8", "uint8"))
+    field = list(one[0])
+    field[slot] = {0: 4, 1: 3, 2: "int32", 3: "uint32"}[slot]
+    other = (tuple(field), one[1])
+    a, b = bd._plan(one), bd._plan(other)
+    assert a is not b and bd._plan(one) is a and bd._plan(other) is b
+    assert bd._plan([list(f) for f in other]) is b   # a list keys by value
+    packed = [(f.offset, f.count, f.wire, f.out) for f in b.packed.f[:2]]
+    assert packed == [(off, cnt, bd.WIRE_CODES[wd], bd.OUT_CODES[od])
+                      for off, cnt, wd, od in other]
+    page = torch.from_numpy(_page(3, slot))
+    for fields in (one, other):
+        got = bd.decode_columns(page, fields)
+        want = bd.decode_columns_plain(page, [list(f) for f in fields])
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
 # -- paged attention -------------------------------------------------------------
 
 def _paged_setup(rng, b, hq, hkv, d, bs, m, n, t):
@@ -222,16 +261,32 @@ def test_launch_count_exact_across_threads():
 
 def test_flash_build_refuses_spills_and_keys_its_library_by_its_flags(
         monkeypatch):
-    """ptxas turns a spill in flash_attention.cu into an error, and the
-    library's name hashes the flags it was built with, so a library
-    built without that check is not reused."""
-    flags = build._flags("flash_attention")
-    assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
-    assert flags[-2:] == ("-Xptxas", "-warn-spills,-Werror")
-    assert build._flags("paged_attention") == build.NVCC_FLAGS
+    """ptxas turns a spill in flash_attention.cu or paged_attention.cu (the
+    bf16 attention bodies) into an error, and the library's name hashes
+    the flags it was built with, so a library built without that check is
+    not reused."""
+    for name in ("flash_attention", "paged_attention"):
+        flags = build._flags(name)
+        assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+        assert flags[-2:] == ("-Xptxas", "-warn-spills,-Werror")
+    assert build._flags("bebop_decode") == build.NVCC_FLAGS
     before = build._target("flash_attention")
     monkeypatch.setattr(build, "SOURCE_FLAGS", {})
     assert build._target("flash_attention") != before
+
+
+def test_build_keys_each_library_by_the_shared_headers(tmp_path,
+                                                       monkeypatch):
+    """Every source includes csrc/*.cuh, so an edited header renames (and
+    so rebuilds) every library."""
+    for src in build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = sorted(p.stem for p in tmp_path.glob("*.cu"))
+    before = {n: build._target(n) for n in names}
+    header = tmp_path / "mma_bf16.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    assert all(build._target(n) != before[n] for n in names)
 
 
 # -- on the card -----------------------------------------------------------------
@@ -266,6 +321,156 @@ def test_cuda_paged_kernels_match_plain(cuda, dtype, atol, rtol, t):
     want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("n", [1, 7, 255, 4097])
+@pytest.mark.parametrize("stride,lead,shift", [
+    (64, 0, 0),
+    (67, 0, 0),            # a stride that is not a multiple of 16
+    (67, 1, 0),            # a row slice starting 3 bytes off a boundary
+    (100, 3, 20),          # 12 bytes off, the plan 20 bytes into the row
+])
+def test_cuda_decode_kernel_bit_exact_on_unaligned_pages(cuda, n, stride,
+                                                          lead, shift):
+    big = np.random.default_rng(n + stride).integers(
+        0, 256, (n + lead, stride), dtype=np.uint8)
+    page = torch.from_numpy(big).to(cuda)[lead:]
+    plan = [(off + shift, cnt, wd, od) for off, cnt, wd, od in PLAN]
+    before = bd.decode_columns.launches
+    got = bd.decode_columns(page, plan)
+    assert bd.decode_columns.launches == before + 1
+    for f, a, b in zip(plan, got, bd.decode_columns_plain(page, plan)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(_bits(a.cpu().numpy()),
+                                      _bits(b.cpu().numpy()), err_msg=f)
+
+
+@pytest.mark.parametrize("wire,out", [
+    ("uint32", "int32"), ("int32", "uint32"), ("float32", "float32"),
+    ("uint16", "uint16"), ("uint8", "uint8"),
+    ("uint16", "int32"),    # widens: staged, not copied
+])
+@pytest.mark.parametrize("n,lead", [(1, 0), (7, 0), (4097, 0), (7, 1)])
+def test_cuda_decode_kernel_bit_exact_on_whole_row_columns(cuda, wire, out,
+                                                           n, lead):
+    """A one-field plan whose output is the page's own bytes is copied
+    (16-byte aligned pages: lead 0); a row slice off a 16-byte boundary
+    (lead 1 row of 100 bytes) takes the staged path."""
+    stride = 64 if lead == 0 else 100
+    big = np.random.default_rng(n + lead).integers(
+        0, 256, (n + lead, stride), dtype=np.uint8)
+    page = torch.from_numpy(big).to(cuda)[lead:]
+    width = {"uint32": 4, "int32": 4, "float32": 4, "uint16": 2}.get(wire, 1)
+    kw = dict(offset=0, count=stride // width, wire_dtype=wire, out_dtype=out)
+    before = bd.decode_column.launches
+    got = bd.decode_column(page, **kw)
+    assert bd.decode_column.launches == before + 1
+    want = bd.decode_columns_plain(page, [tuple(kw.values())])[0]
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(_bits(got.cpu().numpy()),
+                                  _bits(want.cpu().numpy()))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_cuda_decode_kernel_bit_exact_on_rows_read_in_place(cuda, n):
+    """Rows too wide to stage in shared memory are decoded in place."""
+    stride = 50_000
+    page = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, (n, stride), dtype=np.uint8)).to(cuda)
+    plan = [(off + stride - 64, cnt, wd, od) for off, cnt, wd, od in PLAN]
+    plan.append((0, stride // 4, "uint32", "uint32"))   # one wide column
+    for f, a, b in zip(plan, bd.decode_columns(page, plan),
+                       bd.decode_columns_plain(page, plan)):
+        np.testing.assert_array_equal(_bits(a.cpu().numpy()),
+                                      _bits(b.cpu().numpy()), err_msg=f)
+
+
+def _edge_qpos(b, t, keys):
+    """Query positions of b rows ending at the bf16 body's tile edges (63,
+    64, 65, 129 keys), past 1,024 keys, at the table's end, and two decode
+    rows: ctx == 0 (no valid key) and one padded to the tile width."""
+    ends = np.minimum([0, 63, 64, 65, 129, 2000, 40, keys], keys)[:b]
+    qpos = ends[:, None] - t + np.arange(t)[None]
+    qpos[0] = -1                       # no valid key: zeros
+    qpos[6] = 39                       # a decode row padded to width t
+    return qpos.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, ATOL, RTOL),
+    (torch.bfloat16, 2e-2, 2e-2),
+])
+@pytest.mark.parametrize("t", [1, 5, 32])
+@pytest.mark.parametrize("bs,m", [
+    (8, 37),       # 37 blocks: not a multiple of the 8 a 64-key tile takes
+    (16, 130),     # 2,080 keys: contexts past 1,024
+    (32, 5),
+    (64, 3),       # a 64-key tile is one block
+])
+def test_cuda_paged_kernels_at_tile_edges(cuda, dtype, atol, rtol, t, bs, m):
+    rng = np.random.default_rng(bs * t + m)
+    b, hq, hkv, d = 8, 12, 2, 128
+    n = b * m + 1
+    q, kp, vp, tables = _paged_setup(rng, b, hq, hkv, d, bs, m, n, t)
+    tables[1, -1] = n + 5                 # out of range: clamped
+    qpos = _edge_qpos(b, t, m * bs)
+    q, kp, vp, tables, qpos = [x.to(cuda) for x in _t(q, kp, vp, tables,
+                                                       qpos)]
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    wrapper = pa.paged_attention if t == 1 else pa.paged_prefill_attention
+    before = wrapper.launches
+    got = ops.paged_attention(q, kp, vp, tables, qpos)
+    assert wrapper.launches == before + 1
+    want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert not got[0].any()
+    # blocks no table lists never reach the output
+    listed = torch.zeros(n, dtype=torch.bool, device=cuda)
+    listed[tables.long().clamp(0, n - 1).reshape(-1)] = True
+    kp[~listed] = 1e3
+    vp[~listed] = -1e3
+    assert torch.equal(ops.paged_attention(q, kp, vp, tables, qpos), got)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, ATOL, RTOL),
+    (torch.bfloat16, 2e-2, 2e-2),
+])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 1, 256), (4, 2, 64)])
+@pytest.mark.parametrize("t", [1, 32])
+@pytest.mark.parametrize("bs,m", [(16, 20), (64, 5)])
+def test_cuda_paged_kernels_at_other_head_dims(cuda, dtype, atol, rtol, hq,
+                                               hkv, d, t, bs, m):
+    """gemma-2b's shape (head_dim 256, MQA; its 32-key bf16 tiles are half
+    a 64-key block) and a head_dim-64 one."""
+    rng = np.random.default_rng(d + t + bs)
+    b = 8
+    n = b * m + 1
+    q, kp, vp, tables = _paged_setup(rng, b, hq, hkv, d, bs, m, n, t)
+    qpos = _edge_qpos(b, t, m * bs)
+    q, kp, vp, tables, qpos = [x.to(cuda) for x in _t(q, kp, vp, tables,
+                                                       qpos)]
+    q, kp, vp = (x.to(dtype) for x in (q, kp, vp))
+    got = ops.paged_attention(q, kp, vp, tables, qpos)
+    want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_cuda_paged_kernel_refuses_head_dims_it_lacks(cuda):
+    rng = np.random.default_rng(0)
+    q, kp, vp, tables = _paged_setup(rng, 2, 4, 2, 96, 16, 4, 9, 5)
+    qpos = np.stack([np.arange(5), 10 + np.arange(5)]).astype(np.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [x.to(cuda) for x in _t(q, kp, vp, tables, qpos)]
+        for i in range(3):
+            args[i] = args[i].to(dtype)
+        with pytest.raises(ValueError, match=r"head_dim 64, 128 or 256.*96"):
+            pa.paged_prefill_attention(*args)
+        with pytest.raises(ValueError, match=r"head_dim 64, 128 or 256.*96"):
+            pa.paged_attention(args[0][:, :, 0], *args[1:4],
+                               args[4][:, 0] + 1)
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", [
