@@ -30,7 +30,8 @@ plain version, its memory/compute bound and, where one PyTorch call
 computes the same function, that call.
 
 Every phase prints ``[phase] ok|FAIL <seconds> {json}``; the first failure
-ends the run with a nonzero exit.  The line before the last is the
+ends the run with a nonzero exit.  ``--decode-timing`` (with ``--src`` for
+another checkout's ``src``) runs only the page decode timing rows.  The line before the last is the
 ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without ``src/repro_torch`` beside it, the script
@@ -117,13 +118,23 @@ class Phase:
         return info
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--decode-timing", action="store_true",
+                    help="only time the page decode rows (decode_rows) and "
+                         "print them: an A/B of two checkouts' decode "
+                         "kernels runs this once per checkout")
+    ap.add_argument("--src", help="the directory holding the repro_torch "
+                                  "to run (default: src beside this script)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    src = os.path.abspath(args.src) if args.src else os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print(f"chip_smoke: {src}/repro_torch not found: run from a "
               f"checkout of the repository", file=sys.stderr)
@@ -149,6 +160,15 @@ def main() -> int:
                 "tf32_matmul": False, "tf32_cudnn": False}
 
     from repro_torch.kernels import bebop_decode as bd
+    if args.decode_timing:
+        def _decode_timing():
+            gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+            flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                                device=dev)
+            return {"card": state["smi"], "src": src,
+                    **decode_rows(torch, bd, dev, gen, flush)}
+        Phase("decode_timing")(_decode_timing)
+        return 0
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -1188,15 +1208,25 @@ def rwkv_serve(torch, bd, rw, dev, state):
 # -- timing ------------------------------------------------------------------
 
 
-def _cold_ms(torch, fn, flush, iters=30):
+#: GPU clock cycles of the spin before a ``lead`` call: about 1 ms
+LEAD_CYCLES = 2_000_000
+
+
+def _cold_ms(torch, fn, flush, iters=30, lead=False):
     """Median device time of ``fn`` in ms, CUDA events around each call,
     the 50 MB L2 flushed before each (the serving loop finds a layer's
-    pool slice cold: 28 layers of K/V do not fit in L2)."""
+    pool slice cold: 28 layers of K/V do not fit in L2).  The events
+    time the card from when the start event runs, so host work of ``fn``
+    that outlasts the flush is counted; with ``lead`` a ~1 ms spin on the
+    card after the flush hides it, and what is timed is the launches and
+    the kernels alone."""
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1270,18 +1300,29 @@ def _wkv_bound(b, h, t, kk, vv, itemsize=2):
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
-def timing(torch, bd, pa, fa, rg, rw, dev, state):
-    import torch.nn.functional as F
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    launches = state["launches"]
-    kernels, extra = [], {}
+def decode_rows(torch, bd, dev, gen, flush):
+    """The page decode wrapper at the serve pages' shape and at a bulk
+    page: ``ms`` and ``library_ms`` as every kernel row, ``device_ms`` with
+    the host's work hidden behind a spin, ``host_us`` the wrapper's host
+    time.  Returns {row: entry}; works with any checkout's ``bd``."""
+    def row(fn, plain, nbytes, library=None):
+        entry = {"ms": _cold_ms(torch, fn, flush),
+                 "device_ms": _cold_ms(torch, fn, flush, lead=True),
+                 "plain_ms": _cold_ms(torch, plain, flush),
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes", "host_us": _host_us(torch, fn)}
+        if library is not None:
+            entry["library_ms"] = _cold_ms(torch, library, flush)
+            entry["library_host_us"] = _host_us(torch, library)
+        return entry
+
+    rows = {}
     # decode_columns at the serve pages' shape: one PromptRecord400 row
     n_tok = max(PROMPT_LENS)
     page = torch.randint(0, 256, (1, 4 * n_tok), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
     plan = ((0, n_tok, "uint32", "int32"),)   # a tuple, as ingest passes
-    nbytes = 2 * page.numel()
+
     def library():
         # one u32 -> i32 column spanning the whole row is a bitcast: one
         # PyTorch call (a view and its copy) computes the same function
@@ -1289,66 +1330,65 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
 
     if not torch.equal(library(), bd.decode_columns(page, plan)[0]):
         raise AssertionError("decode_columns differs from page.view(int32)")
-    kernels.append({
-        "name": "bebop_decode.decode_columns", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bebop_decode.cu",
-        "replaces": "src/repro/kernels/bebop_decode.py:110",
-        "launches": launches["bebop_decode.decode_columns"],
-        "max_abs_err": state["decode_kernel"]["max_abs_err"],
-        "ms": _cold_ms(torch, lambda: bd.decode_columns(page, plan), flush),
-        "plain_ms": _cold_ms(
-            torch, lambda: bd.decode_columns_plain(page, plan), flush),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": _cold_ms(torch, library, flush),
-        "host_us": _host_us(torch, lambda: bd.decode_columns(page, plan)),
-        "library_host_us": _host_us(torch, library),
-        "shape": f"page [1, {4 * n_tok}] u8 -> [1, {n_tok}] int32 (a "
-                 f"bitcast column: the kernel's copy path)"})
-    # decode_column (not on the main path) at a bulk page
+    rows["decode_columns"] = dict(
+        row(lambda: bd.decode_columns(page, plan),
+            lambda: bd.decode_columns_plain(page, plan), 2 * page.numel(),
+            library),
+        shape=f"page [1, {4 * n_tok}] u8 -> [1, {n_tok}] int32 (a bitcast "
+              f"column: the kernel's copy path)")
+    # the same page and column converted to float32: the staged body at
+    # the served page's shape
+    to_f32 = ((0, n_tok, "uint32", "float32"),)
+    rows[f"decode_columns@1x{4 * n_tok}_u32_to_f32"] = row(
+        lambda: bd.decode_columns(page, to_f32),
+        lambda: bd.decode_columns_plain(page, to_f32), 2 * page.numel())
+    # decode_column (not on the main path) at a bulk page: 16 u32 at offset
+    # 0 fill the 64-byte row, a bitcast again
     bulk = torch.randint(0, 256, (65536, 64), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
     col = dict(offset=0, count=16, wire_dtype="uint32", out_dtype="int32")
-    kernels.append({
-        "name": "bebop_decode.decode_column", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bebop_decode.cu",
-        "replaces": "src/repro/kernels/bebop_decode.py:69",
-        "launches": launches["bebop_decode.decode_column"],
-        "max_abs_err": state["decode_kernel"]["max_abs_err"],
-        "ms": _cold_ms(torch, lambda: bd.decode_column(bulk, **col), flush),
-        "plain_ms": _cold_ms(torch, lambda: bd.decode_columns_plain(
-            bulk, [(0, 16, "uint32", "int32")]), flush),
-        "bound_ms": (bulk.numel() + 65536 * 64) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        # 16 u32 at offset 0 fill the 64-byte row: a bitcast again
-        "library_ms": _cold_ms(
-            torch, lambda: bulk.view(torch.int32).clone(), flush),
-        "host_us": _host_us(torch, lambda: bd.decode_column(bulk, **col)),
-        "library_host_us": _host_us(
-            torch, lambda: bulk.view(torch.int32).clone()),
-        "shape": "page [65536, 64] u8 -> [65536, 16] int32 (a bitcast "
-                 "column: the copy path; not on the served path)"})
-    # the staged path at the same page: a column that converts
+    rows["decode_column"] = dict(
+        row(lambda: bd.decode_column(bulk, **col),
+            lambda: bd.decode_columns_plain(
+                bulk, [(0, 16, "uint32", "int32")]),
+            bulk.numel() + 65536 * 64,
+            lambda: bulk.view(torch.int32).clone()),
+        shape="page [65536, 64] u8 -> [65536, 16] int32 (a bitcast "
+              "column: the copy path; not on the served path)")
+    # the same page and column converted to float32: the staged body
     f32 = dict(col, out_dtype="float32")
-    extra["bebop_decode.decode_column@65536x64_u32_to_f32"] = {
-        "ms": _cold_ms(torch, lambda: bd.decode_column(bulk, **f32), flush),
-        "plain_ms": _cold_ms(torch, lambda: bd.decode_columns_plain(
-            bulk, [(0, 16, "uint32", "float32")]), flush),
-        "bound_ms": (bulk.numel() + 65536 * 64) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "host_us": _host_us(torch, lambda: bd.decode_column(bulk, **f32))}
+    rows["decode_column@65536x64_u32_to_f32"] = row(
+        lambda: bd.decode_column(bulk, **f32),
+        lambda: bd.decode_columns_plain(bulk, [(0, 16, "uint32", "float32")]),
+        bulk.numel() + 65536 * 64)
+    # every wire dtype in one pass; ms holds the host's time too where the
+    # wrapper's host work (one output tensor per field) outlasts the flush
     out_bytes = sum(c.element_size() * c.shape[1]
                     for c in bd.decode_columns(bulk[:1], DECODE_PLAN))
-    extra["bebop_decode.decode_columns@65536x64"] = {
-        "ms": _cold_ms(torch, lambda: bd.decode_columns(bulk, DECODE_PLAN),
-                       flush),
-        "plain_ms": _cold_ms(torch, lambda: bd.decode_columns_plain(
-            bulk, DECODE_PLAN), flush),
-        "bound_ms": 65536 * (64 + out_bytes) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "fields": len(DECODE_PLAN),
-        # ms holds the host's time too where the wrapper's host work (one
-        # output tensor per field) outlasts the L2 flush before the call
-        "host_us": _host_us(
-            torch, lambda: bd.decode_columns(bulk, DECODE_PLAN))}
+    rows["decode_columns@65536x64"] = dict(
+        row(lambda: bd.decode_columns(bulk, DECODE_PLAN),
+            lambda: bd.decode_columns_plain(bulk, DECODE_PLAN),
+            65536 * (64 + out_bytes)),
+        fields=len(DECODE_PLAN))
+    return rows
+
+
+def timing(torch, bd, pa, fa, rg, rw, dev, state):
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    launches = state["launches"]
+    kernels, extra = [], {}
+    decode = decode_rows(torch, bd, dev, gen, flush)
+    for name, line in (("decode_columns", 110), ("decode_column", 69)):
+        kernels.append({
+            "name": f"bebop_decode.{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bebop_decode.cu",
+            "replaces": f"src/repro/kernels/bebop_decode.py:{line}",
+            "launches": launches[f"bebop_decode.{name}"],
+            "max_abs_err": state["decode_kernel"]["max_abs_err"],
+            **decode.pop(name)})
+    extra.update({f"bebop_decode.{k}": v for k, v in decode.items()})
     # attention at the serve rows' mid-generation contexts
     ctx = list(ATTN_CTX)
     b = len(ctx)

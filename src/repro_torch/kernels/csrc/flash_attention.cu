@@ -43,6 +43,9 @@
 // V fragments come from V rows by ldmatrix.trans.  A masked key
 // contributes exactly zero, and a row with no valid key emits zeros (as
 // ref.attention does); its max stays -inf, so exp2 is taken against 0.
+// That step over a tile and the epilogue are mma_bf16.cuh's attend_tile
+// and store_rows, which paged_attention.cu's bf16 body shares; this file
+// keeps the staging and the causal / window walk.
 // The output accumulator is D / 2 f32 registers a thread: at D 256, 64-key
 // tiles (32 more score registers) spill at ptxas's 255-register limit,
 // hence 32-key tiles there.  This file is built with
@@ -289,10 +292,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             int window, int q_offset, float scale_log2) {
   constexpr int kLd = D + 8;            // padded smem row, in elements
   constexpr int kChunks = D / 8;        // 16-byte chunks a row
-  constexpr int kTilesS = kKeys / 8;    // S n-tiles a warp
-  constexpr int kTilesO = D / 8;        // output n-tiles a warp
   constexpr bool kQInRegs = D <= 128;
-  static_assert(kKeys % 16 == 0 && D % 16 == 0, "mma tile shape");
   static_assert(kRows * kChunks % kThreads == 0, "Q staging");
   static_assert(kKeys * kChunks % kThreads == 0, "K/V staging");
 
@@ -312,7 +312,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int gid = lane >> 2;
 
   // KV range any row of the CTA can reach
   const int qpos_lo = row0 / g + q_offset;
@@ -354,9 +354,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     }
   };
 
-  float o[kTilesO][4];
+  float o[D / 8][4];   // the warp's [16, D] output accumulator
 #pragma unroll
-  for (int j = 0; j < kTilesO; ++j)
+  for (int j = 0; j < D / 8; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
@@ -406,115 +406,28 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
         for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], q_lane + kk * 32);
       }
     }
-    const uint32_t k_tile = k_lane + stage * kStageBytes;
-    const uint32_t v_tile = v_lane + stage * kStageBytes;
-
-    // S = Q K^T over this tile, f32 accumulators
-    float s[kTilesS][4];
-#pragma unroll
-    for (int j = 0; j < kTilesS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
+    auto q_frag = [&](int kk, uint32_t (&a)[4]) {
       if constexpr (kQInRegs) {
         a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
       } else {
         ldsm_x4(a, q_lane + kk * 32);
       }
-#pragma unroll
-      for (int jj = 0; jj < kKeys / 16; ++jj) {
-        uint32_t bk[4];
-        ldsm_x4(bk, k_tile + (jj * 16 * kLd + kk * 16) * sizeof(bf16));
-        mma_bf16(s[2 * jj], a, bk[0], bk[1]);
-        mma_bf16(s[2 * jj + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // scale (log2 domain) and mask in registers where the tile crosses a
-    // limit of the warp's rows or the end of S
+    };
+    // mask where the tile crosses a limit of the warp's rows or the end of S
     const int k0 = kt * kKeys;
-    const bool need_mask = k0 < free_lo || k0 + kKeys - 1 > free_hi;
-#pragma unroll
-    for (int j = 0; j < kTilesS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (need_mask) {
-          const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
-          if (kpos < kmin[e >> 1] || kpos > kmax[e >> 1]) x = -INFINITY;
-        }
-        s[j][e] = x;
-      }
-    }
-
-    // online softmax in f32: rows gid (e = 0, 1) and gid + 8 (e = 2, 3)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kTilesS; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[i], mx);
-      // no valid key yet: subtract 0, so -inf - -inf never happens
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m_run[i] - m_use);   // 0 while m_run = -inf
-      m_run[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTilesS; ++j) {
-        s[j][2 * i] = exp2f(s[j][2 * i] - m_use);
-        s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - m_use);
-        sum += s[j][2 * i] + s[j][2 * i + 1];
-      }
-      l_run[i] = l_run[i] * corr + sum;   // this lane's part of the row sum
-#pragma unroll
-      for (int j = 0; j < kTilesO; ++j) {
-        o[j][2 * i] *= corr;
-        o[j][2 * i + 1] *= corr;
-      }
-    }
-
-    // O += P V, P split into bf16 hi + lo; the S fragments of keys
-    // 16kk..16kk+15 are P's A-fragment for that k-step
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, v_tile + (kk * 16 * kLd + dd * 16) * sizeof(bf16));
-        mma_bf16(o[2 * dd], hi, bv[0], bv[1]);
-        mma_bf16(o[2 * dd], lo, bv[0], bv[1]);
-        mma_bf16(o[2 * dd + 1], hi, bv[2], bv[3]);
-        mma_bf16(o[2 * dd + 1], lo, bv[2], bv[3]);
-      }
-    }
+    attend_tile<D, kKeys>(o, m_run, l_run, q_frag,
+                          k_lane + stage * kStageBytes,
+                          v_lane + stage * kStageBytes, scale_log2, k0,
+                          k0 < free_lo || k0 + kKeys - 1 > free_hi, kmin,
+                          kmax);
     __syncthreads();   // every reader of this stage is done
   }
 
   // out = acc / l, zeros where no key was valid
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int r = row0 + 16 * warp + gid + 8 * i;
-    if (r >= n_rows) continue;
-    const float den = l == 0.f ? 1.f : l;   // o is 0 there
-    bf16* dst = out + ((static_cast<size_t>(b) * hq + h * g + r % g) * tq +
-                       r / g) * D + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < kTilesO; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          o[j][2 * i] / den, o[j][2 * i + 1] / den);
-    }
-  }
+  store_rows<D>(o, l_run, row0 + 16 * warp + gid, n_rows, D, [&](int r) {
+    return out + ((static_cast<size_t>(b) * hq + h * g + r % g) * tq +
+                  r / g) * D;
+  });
 }
 
 template <int D, int kKeys>

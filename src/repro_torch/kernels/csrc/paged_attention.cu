@@ -36,16 +36,15 @@
 // or past the CTA's end (max(qpos) + 1, at most M*bs) are zero-filled, so
 // table entries at or past M are never read and no stale bits reach a
 // product.  Q is staged once, unscaled, and read by ldmatrix each tile.
-// S = Q K^T and O += P V run as mma.sync m16n8k16 bf16 x bf16 with f32
-// accumulators, scale applied to the f32 scores (the TPU kernel scales q
-// before the dot: one f32 rounding apart).  The online softmax runs in f32
-// on the accumulator fragments, each row's max and sum reduced over the 4
-// lanes that hold it by shuffles: no block-wide barrier for it.  A warp
-// masks only the tiles that cross its rows' limits, and skips the tiles
-// none of its rows reaches (a warp past the last row skips them all).  P
-// is split in f32 into hi = bf16(P) and lo = bf16(P - hi), and hi V + lo V
-// keeps the f32 P V of the TPU kernel to ~2^-16 of |P| (one bf16 P would
-// round it at 2^-9).  This file is built with `-Xptxas
+// The step over a tile is flash_attention.cu's, shared through
+// mma_bf16.cuh (attend_tile, store_rows): S = Q K^T and O += P V as
+// mma.sync m16n8k16 bf16 x bf16 with f32 accumulators, scale applied to
+// the f32 scores (the TPU kernel scales q before the dot: one f32 rounding
+// apart), the online softmax in f32 in registers with no block-wide
+// barrier, and P split into bf16 hi + lo, which keeps the f32 P V of the
+// TPU kernel to ~2^-16 of |P|.  A warp masks only the tiles that cross
+// its rows' limits, and skips the tiles none of its rows reaches (a warp
+// past the last row skips them all).  This file is built with `-Xptxas
 // -warn-spills,-Werror` (kernels/build.py), so a spill fails the build.
 // What it still lacks: split-K over long contexts (decode launches only
 // B x Hkv CTAs, one walking each row's whole history), and wgmma / TMA
@@ -58,8 +57,15 @@
 // memory (rows padded to D + 4 floats); eight threads own a row, each
 // scoring 4 keys of a tile, with the row's max and sum taken by warp
 // shuffles, and keep D / 8 output columns of the row in registers.
-// Queries are scaled before the dot, as in the TPU kernel.  Both bodies
-// are built for head_dim 64, 128 and 256.
+// Queries are scaled before the dot, as in the TPU kernel.
+//
+// Head dims: the bf16 body is built for head_dim 64, 128 and 256 exactly.
+// Its D 256 build sits at ptxas's 255 registers, and a runtime head_dim
+// (zero-padded columns, as below) spilled there.  The float32 body is
+// built for widths D of 64, 128, 256 and 512 and takes any head_dim d <= D
+// that is a multiple of 4 (rows of whole 16-byte pieces): columns d..D-1
+// are zero-filled in shared memory, add nothing to a score and are not
+// written.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -85,6 +91,8 @@ constexpr int kKeys = 32;                          // keys a K/V tile
 constexpr int kLanesPerRow = kThreads / kRows;     // 8
 constexpr int kKeysPerLane = kKeys / kLanesPerRow; // 4
 
+// D: head_dim rounded up to the body's width; columns d..D-1 are zeros
+// in shared memory and are not written.
 template <int D, bool kDecode>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_f32_kernel(const float* __restrict__ q,
@@ -92,7 +100,7 @@ paged_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ v_pool,
                            const int* __restrict__ tables,
                            const int* __restrict__ pos, float* __restrict__ out,
-                           int hq, int hkv, int tq, int bs, int m,
+                           int hq, int hkv, int tq, int d, int bs, int m,
                            int n_blocks, float scale) {
   constexpr int kLd = D + 4;                     // padded smem row, floats
   constexpr int kVecs = D / 4;                   // float4 a row
@@ -124,9 +132,11 @@ paged_attention_f32_kernel(const float* __restrict__ q,
   // this tile's queries, scaled before the dot as the TPU kernel does
   for (int i = tid; i < rows * kVecs; i += kThreads) {
     const int r = i / kVecs, c = (i % kVecs) * 4;
-    float4 x = __ldg(reinterpret_cast<const float4*>(
-        q + (slab + row0 + r) * D + c));
-    x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < d) {
+      x = __ldg(reinterpret_cast<const float4*>(q + (slab + row0 + r) * d + c));
+      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
+    }
     *reinterpret_cast<float4*>(qs + r * kLd + c) = x;
   }
   __syncthreads();
@@ -147,11 +157,11 @@ paged_attention_f32_kernel(const float* __restrict__ q,
       const int r = i / kVecs, c = (i % kVecs) * 4;
       const int s = k0 + r;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (s < ctx_end) {
+      if (s < ctx_end && c < d) {
         const int j = s / bs;
         const int phys = min(max(__ldg(tbl + j), 0), n_blocks - 1);
         const size_t src =
-            ((static_cast<size_t>(phys) * hkv + h) * bs + (s - j * bs)) * D + c;
+            ((static_cast<size_t>(phys) * hkv + h) * bs + (s - j * bs)) * d + c;
         kx = __ldg(reinterpret_cast<const float4*>(k_pool + src));
         vx = __ldg(reinterpret_cast<const float4*>(v_pool + src));
       }
@@ -233,21 +243,23 @@ paged_attention_f32_kernel(const float* __restrict__ q,
 
   if (!row_ok) return;
   const float inv = (l_run == 0.f) ? 0.f : 1.f / l_run;  // no valid key: 0
-  float* o = out + (slab + row0 + my_row) * D;
+  float* o = out + (slab + row0 + my_row) * d;
 #pragma unroll
   for (int c = 0; c < kCols4; ++c) {
     const int col = 4 * (sub + kLanesPerRow * c);
-    *reinterpret_cast<float4*>(o + col) =
-        make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv,
-                    acc[c].w * inv);
+    if (col < d) {
+      *reinterpret_cast<float4*>(o + col) =
+          make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv,
+                      acc[c].w * inv);
+    }
   }
 }
 
 template <int D, bool kDecode>
 int launch_f32(const void* q, const void* k_pool, const void* v_pool,
                const int* tables, const int* pos, void* out, int b, int hq,
-               int hkv, int tq, int bs, int m, int n_blocks, float scale,
-               void* stream) {
+               int hkv, int tq, int d, int bs, int m, int n_blocks,
+               float scale, void* stream) {
   constexpr size_t smem = sizeof(float) * (kRows + 2 * kKeys) * (D + 4);
   const int row_tiles = ((hq / hkv) * tq + kRows - 1) / kRows;
   if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -260,7 +272,7 @@ int launch_f32(const void* q, const void* k_pool, const void* v_pool,
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k_pool),
       static_cast<const float*>(v_pool), tables, pos,
-      static_cast<float*>(out), hq, hkv, tq, bs, m, n_blocks, scale);
+      static_cast<float*>(out), hq, hkv, tq, d, bs, m, n_blocks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,9 +297,6 @@ paged_attention_bf16_kernel(const bf16* __restrict__ q,
                             int bs, int m, int n_blocks, float scale_log2) {
   constexpr int kLd = D + 8;            // padded smem row, in elements
   constexpr int kChunks = D / 8;        // 16-byte chunks a row
-  constexpr int kTilesS = kKeys / 8;    // S n-tiles a warp
-  constexpr int kTilesO = D / 8;        // output n-tiles a warp
-  static_assert(kKeys % 16 == 0 && D % 16 == 0, "mma tile shape");
   static_assert(kRows * kChunks % kThreads == 0, "Q staging");
   static_assert(kKeys * kChunks % kThreads == 0, "K/V staging");
 
@@ -309,11 +318,12 @@ paged_attention_bf16_kernel(const bf16* __restrict__ q,
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int gid = lane >> 2;
 
   // last key each of this thread's two rows reaches (-1: none); rows past
   // the slab take no part in the warp's limits
   int lim[2], lo = INT32_MAX, hi = -1;
+  const int kmin[2] = {0, 0};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + 16 * warp + gid + 8 * i;
@@ -360,9 +370,9 @@ paged_attention_bf16_kernel(const bf16* __restrict__ q,
     }
   };
 
-  float o[kTilesO][4];
+  float o[D / 8][4];   // the warp's [16, D] output accumulator
 #pragma unroll
-  for (int j = 0; j < kTilesO; ++j)
+  for (int j = 0; j < D / 8; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
@@ -376,6 +386,9 @@ paged_attention_bf16_kernel(const bf16* __restrict__ q,
   const uint32_t v_lane =
       smem_addr(vs + ((mat & 1) * 8 + mrow) * kLd + (mat >> 1) * 8);
   constexpr uint32_t kStageBytes = kKeys * kLd * sizeof(bf16);
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+    ldsm_x4(a, q_lane + kk * 32);
+  };
 
   if (n_tiles > 0) {
     // Q once per CTA, then the first K/V tile, in one copy group
@@ -403,117 +416,25 @@ paged_attention_bf16_kernel(const bf16* __restrict__ q,
     __syncthreads();
     const int k0 = kt * kKeys;
     if (k0 <= warp_hi) {   // warp-uniform: some row of the warp reaches it
-      const uint32_t k_tile = k_lane + stage * kStageBytes;
-      const uint32_t v_tile = v_lane + stage * kStageBytes;
-
-      // S = Q K^T over this tile, f32 accumulators
-      float s[kTilesS][4];
-#pragma unroll
-      for (int j = 0; j < kTilesS; ++j)
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, q_lane + kk * 32);
-#pragma unroll
-        for (int jj = 0; jj < kKeys / 16; ++jj) {
-          uint32_t bk[4];
-          ldsm_x4(bk, k_tile + (jj * 16 * kLd + kk * 16) * sizeof(bf16));
-          mma_bf16(s[2 * jj], a, bk[0], bk[1]);
-          mma_bf16(s[2 * jj + 1], a, bk[2], bk[3]);
-        }
-      }
-
-      // scale (log2 domain) and mask in registers where the tile crosses
-      // the limit of one of the warp's rows
-      const bool need_mask = k0 + kKeys - 1 > warp_lo;
-#pragma unroll
-      for (int j = 0; j < kTilesS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale_log2;
-          if (need_mask && k0 + 8 * j + 2 * tig + (e & 1) > lim[e >> 1])
-            x = -INFINITY;
-          s[j][e] = x;
-        }
-      }
-
-      // online softmax in f32: rows gid (e = 0, 1) and gid + 8 (e = 2, 3)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kTilesS; ++j)
-          mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_run[i], mx);
-        // no valid key yet: subtract 0, so -inf - -inf never happens
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        const float corr = exp2f(m_run[i] - m_use);   // 0 while m_run = -inf
-        m_run[i] = m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < kTilesS; ++j) {
-          s[j][2 * i] = exp2f(s[j][2 * i] - m_use);
-          s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - m_use);
-          sum += s[j][2 * i] + s[j][2 * i + 1];
-        }
-        l_run[i] = l_run[i] * corr + sum;   // this lane's part of the sum
-#pragma unroll
-        for (int j = 0; j < kTilesO; ++j) {
-          o[j][2 * i] *= corr;
-          o[j][2 * i + 1] *= corr;
-        }
-      }
-
-      // O += P V, P split into bf16 hi + lo; the S fragments of keys
-      // 16kk..16kk+15 are P's A-fragment for that k-step
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        uint32_t phi[4], plo[4];
-        split(s[2 * kk][0], s[2 * kk][1], phi[0], plo[0]);
-        split(s[2 * kk][2], s[2 * kk][3], phi[1], plo[1]);
-        split(s[2 * kk + 1][0], s[2 * kk + 1][1], phi[2], plo[2]);
-        split(s[2 * kk + 1][2], s[2 * kk + 1][3], phi[3], plo[3]);
-#pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          uint32_t bv[4];
-          ldsm_x4_trans(bv,
-                        v_tile + (kk * 16 * kLd + dd * 16) * sizeof(bf16));
-          mma_bf16(o[2 * dd], phi, bv[0], bv[1]);
-          mma_bf16(o[2 * dd], plo, bv[0], bv[1]);
-          mma_bf16(o[2 * dd + 1], phi, bv[2], bv[3]);
-          mma_bf16(o[2 * dd + 1], plo, bv[2], bv[3]);
-        }
-      }
+      // mask where the tile crosses the limit of one of the warp's rows
+      attend_tile<D, kKeys>(o, m_run, l_run, q_frag,
+                            k_lane + stage * kStageBytes,
+                            v_lane + stage * kStageBytes, scale_log2, k0,
+                            k0 + kKeys - 1 > warp_lo, kmin, lim);
     }
     __syncthreads();   // every reader of this stage is done
   }
 
   // out = acc / l, zeros where no key was valid
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int r = row0 + 16 * warp + gid + 8 * i;
-    if (r >= n_rows) continue;
-    const float den = l == 0.f ? 1.f : l;   // o is 0 there
-    bf16* dst = out + (slab + r) * D + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < kTilesO; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          o[j][2 * i] / den, o[j][2 * i + 1] / den);
-    }
-  }
+  store_rows<D>(o, l_run, row0 + 16 * warp + gid, n_rows, D,
+                [&](int r) { return out + (slab + r) * D; });
 }
 
 template <int D, int kKeys, bool kDecode>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const int* tables, const int* pos, void* out, int b, int hq,
-           int hkv, int tq, int bs, int m, int n_blocks, float scale,
-           void* stream) {
+           int hkv, int tq, int /* d == D */, int bs, int m, int n_blocks,
+           float scale, void* stream) {
   constexpr size_t smem = sizeof(bf16) * (kRows + 4 * kKeys) * (D + 8);
   const int row_tiles = ((hq / hkv) * tq + kRows - 1) / kRows;
   if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -532,26 +453,30 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace tc
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 64, 128 or 256.
+// dtype: 0 = float32 (head_dim a multiple of 4, up to 512: every q and K/V
+// row is whole 16-byte pieces), 1 = bfloat16 (head_dim 64, 128 or 256).
 template <bool kDecode>
 int dispatch(int dtype, const void* q, const void* k_pool, const void* v_pool,
              const int* tables, const int* pos, void* out, int b, int hq,
              int hkv, int tq, int d, int bs, int m, int n_blocks, float scale,
              void* stream) {
   if (b <= 0 || hkv <= 0 || hkv > 65535 || hq % hkv != 0 || tq <= 0 ||
-      bs <= 0 || m <= 0 || n_blocks <= 0 ||
+      d <= 0 || bs <= 0 || m <= 0 || n_blocks <= 0 ||
       reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v_pool) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#define PAGED_ARGS q, k_pool, v_pool, tables, pos, out, b, hq, hkv, tq, bs, \
-                   m, n_blocks, scale, stream
+#define PAGED_ARGS q, k_pool, v_pool, tables, pos, out, b, hq, hkv, tq, d, \
+                   bs, m, n_blocks, scale, stream
+  if (dtype == 0 && d % 4 == 0) {
+    if (d <= 64) return launch_f32<64, kDecode>(PAGED_ARGS);
+    if (d <= 128) return launch_f32<128, kDecode>(PAGED_ARGS);
+    if (d <= 256) return launch_f32<256, kDecode>(PAGED_ARGS);
+    if (d <= 512) return launch_f32<512, kDecode>(PAGED_ARGS);
+  }
   // the bf16 body's K/V tiles hold 64 keys, 32 at head_dim 256, where the
   // output accumulator takes 128 registers a thread
-  if (dtype == 0 && d == 64) return launch_f32<64, kDecode>(PAGED_ARGS);
-  if (dtype == 0 && d == 128) return launch_f32<128, kDecode>(PAGED_ARGS);
-  if (dtype == 0 && d == 256) return launch_f32<256, kDecode>(PAGED_ARGS);
   if (dtype == 1 && d == 64) return tc::launch<64, 64, kDecode>(PAGED_ARGS);
   if (dtype == 1 && d == 128) return tc::launch<128, 64, kDecode>(PAGED_ARGS);
   if (dtype == 1 && d == 256) return tc::launch<256, 32, kDecode>(PAGED_ARGS);

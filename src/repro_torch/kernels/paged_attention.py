@@ -95,8 +95,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-#: head dims the kernel is built for (csrc/paged_attention.cu dispatch)
-_HEAD_DIMS = (64, 128, 256)
+def _head_dim_ok(dtype: torch.dtype, d: int) -> bool:
+    """The head dims the kernel takes (csrc/paged_attention.cu dispatch):
+    bf16 64, 128 or 256; float32 any multiple of 4 up to 512."""
+    if dtype == torch.bfloat16:
+        return d in (64, 128, 256)
+    return d % 4 == 0 and 0 < d <= 512
 
 
 def _check(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -116,11 +120,12 @@ def _check(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise ValueError(f"{q.shape[1]} q heads not a multiple of "
                          f"{k_pool.shape[1]} KV heads")
     # both bodies copy q and K/V rows as 16-byte pieces
-    if d not in _HEAD_DIMS or q.data_ptr() % 16 or k_pool.data_ptr() % 16 \
-            or v_pool.data_ptr() % 16:
+    if not _head_dim_ok(q.dtype, d) or q.data_ptr() % 16 \
+            or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError(
-            f"paged attention takes head_dim 64, 128 or 256 and 16-byte-"
-            f"aligned q and pools; got {q.dtype} q {tuple(q.shape)} at byte "
+            f"paged attention takes head_dim 64, 128 or 256 in bfloat16, a "
+            f"multiple of 4 up to 512 in float32, and 16-byte-aligned q and "
+            f"pools; got {q.dtype} q {tuple(q.shape)} at byte "
             f"{q.data_ptr() % 16} mod 16, pools {tuple(k_pool.shape)}")
 
 

@@ -444,6 +444,10 @@ def test_cuda_paged_kernels_at_other_head_dims(cuda, dtype, atol, rtol, hq,
                                                hkv, d, t, bs, m):
     """gemma-2b's shape (head_dim 256, MQA; its 32-key bf16 tiles are half
     a 64-key block) and a head_dim-64 one."""
+    _paged_against_plain(cuda, dtype, atol, rtol, hq, hkv, d, t, bs, m)
+
+
+def _paged_against_plain(cuda, dtype, atol, rtol, hq, hkv, d, t, bs, m):
     rng = np.random.default_rng(d + t + bs)
     b = 8
     n = b * m + 1
@@ -458,19 +462,32 @@ def test_cuda_paged_kernels_at_other_head_dims(cuda, dtype, atol, rtol, hq,
                                rtol=rtol)
 
 
-def test_cuda_paged_kernel_refuses_head_dims_it_lacks(cuda):
+@pytest.mark.parametrize("d", [40, 96, 100, 512])
+@pytest.mark.parametrize("t", [1, 32])
+def test_cuda_paged_f32_kernel_at_head_dims_bf16_lacks(cuda, d, t):
+    """float32 takes any head_dim that is a multiple of 4 up to 512: 40, 96
+    and 100 run in a wider body with zero-filled columns."""
+    _paged_against_plain(cuda, torch.float32, ATOL, RTOL, 4, 2, d, t, 8, 9)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 96),      # not one of the bf16 body's widths
+    (torch.bfloat16, 512),
+    (torch.float32, 98),       # not a multiple of 4
+    (torch.float32, 516),      # wider than 512
+])
+def test_cuda_paged_kernel_refuses_head_dims_it_lacks(cuda, dtype, d):
     rng = np.random.default_rng(0)
-    q, kp, vp, tables = _paged_setup(rng, 2, 4, 2, 96, 16, 4, 9, 5)
+    q, kp, vp, tables = _paged_setup(rng, 2, 4, 2, d, 16, 4, 9, 5)
     qpos = np.stack([np.arange(5), 10 + np.arange(5)]).astype(np.int32)
-    for dtype in (torch.bfloat16, torch.float32):
-        args = [x.to(cuda) for x in _t(q, kp, vp, tables, qpos)]
-        for i in range(3):
-            args[i] = args[i].to(dtype)
-        with pytest.raises(ValueError, match=r"head_dim 64, 128 or 256.*96"):
-            pa.paged_prefill_attention(*args)
-        with pytest.raises(ValueError, match=r"head_dim 64, 128 or 256.*96"):
-            pa.paged_attention(args[0][:, :, 0], *args[1:4],
-                               args[4][:, 0] + 1)
+    args = [x.to(cuda) for x in _t(q, kp, vp, tables, qpos)]
+    for i in range(3):
+        args[i] = args[i].to(dtype)
+    shape = rf"head_dim 64, 128 or 256 in bfloat16.*{d}\)"
+    with pytest.raises(ValueError, match=shape):
+        pa.paged_prefill_attention(*args)
+    with pytest.raises(ValueError, match=shape):
+        pa.paged_attention(args[0][:, :, 0], *args[1:4], args[4][:, 0] + 1)
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", [
