@@ -31,7 +31,8 @@ computes the same function, that call.
 
 Every phase prints ``[phase] ok|FAIL <seconds> {json}``; the first failure
 ends the run with a nonzero exit.  ``--decode-timing`` (with ``--src`` for
-another checkout's ``src``) runs only the page decode timing rows.  The line before the last is the
+another checkout's ``src``) runs only the page decode timing rows, and
+``--scan-timing`` only the RG-LRU and WKV scan rows.  The line before the last is the
 ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without ``src/repro_torch`` beside it, the script
@@ -78,8 +79,7 @@ SCORE_TOL = 0.02    # mean log-prob, kernel path vs plain replay
 ATTN_ATOL = ATTN_RTOL = 2e-2
 F32_ATOL, F32_RTOL = 3e-5, 1e-4     # the JAX kernel tests' f32 tolerances
 # the RG-LRU kernel rounds its multiply and add apart, as the plain loop
-# does, so float32 should agree to the last bit; the limit is ~1e-5
-RGLRU_F32_ATOL = RGLRU_F32_RTOL = 1e-5
+# does, so float32 h and h_final must be bit-equal to the plain version's
 LOGIT_TOL = 0.15
 # the WKV scan rounds every product and sum as the plain loop does and sums
 # o over K in the same pairwise tree, so o and the final state must be
@@ -125,6 +125,12 @@ def main(argv=None) -> int:
                     help="only time the page decode rows (decode_rows) and "
                          "print them: an A/B of two checkouts' decode "
                          "kernels runs this once per checkout")
+    ap.add_argument("--scan-timing", action="store_true",
+                    help="only time the RG-LRU and WKV scan rows (scan_rows, "
+                         "T 400 and T 2000, without the plain loops) and "
+                         "print them with ptxas's report of the two builds: "
+                         "an A/B of two checkouts' scan kernels runs this "
+                         "once per checkout")
     ap.add_argument("--src", help="the directory holding the repro_torch "
                                   "to run (default: src beside this script)")
     args = ap.parse_args(argv)
@@ -169,6 +175,21 @@ def main(argv=None) -> int:
                     **decode_rows(torch, bd, dev, gen, flush)}
         Phase("decode_timing")(_decode_timing)
         return 0
+    if args.scan_timing:
+        def _scan_timing():
+            from repro_torch.kernels import build
+            from repro_torch.kernels import rglru_scan as rg
+            from repro_torch.kernels import rwkv6_scan as rw
+            libs = build.build_all(["rglru_scan", "rwkv6_scan"])
+            gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+            flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                                device=dev)
+            return {"card": state["smi"], "src": src,
+                    "libraries": {k: v.name for k, v in libs.items()},
+                    "ptxas": _ptxas(build),
+                    **scan_rows(torch, rg, rw, dev, gen, flush, plain=False)}
+        Phase("scan_timing")(_scan_timing)
+        return 0
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -177,14 +198,11 @@ def main(argv=None) -> int:
 
     @Phase("build")
     def _build():
-        # ptxas refuses a flash_attention or paged_attention build that
+        # ptxas refuses a build of the attention kernels or the scans that
         # spills (build.SOURCE_FLAGS), so this phase fails on a spill there
         libs = build.build_all()
-        ptxas = sorted({ln.strip() for log in build.build_logs.values()
-                        for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln})
         return {"libraries": {k: v.name for k, v in libs.items()},
-                "ptxas": ptxas,
+                "ptxas": _ptxas(build),
                 "source_flags": {k: " ".join(v) for k, v in
                                  build.SOURCE_FLAGS.items()}}
 
@@ -211,6 +229,14 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _ptxas(build):
+    """ptxas's register and spill lines of the libraries this process
+    built, one of each."""
+    return sorted({ln.strip() for log in build.build_logs.values()
+                   for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln})
 
 
 # -- kernel checks -----------------------------------------------------------
@@ -479,56 +505,69 @@ def check_flash(torch, fa, dev):
     return out
 
 
+#: (B, T, D): a long and a one-step sequence at recurrentgemma-9b's width,
+#: its 2,000-token prompt, a ragged last slab (D 100) and rows that are
+#: not 16-byte aligned (D 37: the kernel's staged loads)
+RGLRU_CASES = ((2, 4096, 4096), (2, 1, 4096), (1, 2000, 4096), (3, 17, 100),
+               (3, 300, 100), (2, 65, 37))
+
+
 def check_rglru(torch, rg, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    out = {}
-    for dtype, atol, rtol in ((torch.float32, RGLRU_F32_ATOL, RGLRU_F32_RTOL),
-                              (torch.bfloat16, 2e-2, 2e-2)):
+    out = {"f32_bit_exact": True, "bf16_bit_exact": True}
+    for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        for b, t, d in ((2, 4096, 4096), (2, 1, 4096), (3, 17, 100)):
+        for b, t, d in RGLRU_CASES:
             x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
             a = torch.rand((b, t, d), generator=gen, device=dev).to(dtype)
             h, hf = rg.rglru_scan(x, a)
             h2, hf2 = rg.rglru_scan_plain(x, a)
             for name, got, want in (("h", h, h2), ("h_final", hf, hf2)):
-                ok, err = _close(torch, got, want, atol, rtol)
-                if not ok or got.dtype != want.dtype:
+                equal = got.dtype == want.dtype and torch.equal(got, want)
+                ok, err = _close(torch, got, want, 2e-2, 2e-2)
+                # float32 must be bit-equal; bf16 h within one rounding
+                if got.dtype != want.dtype \
+                        or not (equal if dtype == torch.float32 else ok):
                     raise AssertionError(f"rglru {tag} [{b}, {t}, {d}] "
-                                         f"{name}: max err {err}")
+                                         f"{name}: {got.dtype}, max err {err}")
                 key = f"{tag}_{name}_max_abs_err"
                 out[key] = max(out.get(key, 0.0), err)
-                if dtype == torch.float32:
-                    out.setdefault("f32_bit_exact", True)
-                    out["f32_bit_exact"] &= bool(torch.equal(got, want))
+                out[f"{tag}_bit_exact"] &= bool(equal)
     torch.cuda.synchronize()
-    out["tolerance_f32"] = {"atol": RGLRU_F32_ATOL, "rtol": RGLRU_F32_RTOL}
-    out["tolerance_bf16"] = {"atol": 2e-2, "rtol": 2e-2}
+    out.update(cases=2 * len(RGLRU_CASES),
+               tolerance_f32="equal", tolerance_bf16={"atol": 2e-2,
+                                                      "rtol": 2e-2})
     return out
 
 
-#: (B, H, T, K = V, scale of r/k/v, scale of u, decays, layout): the JAX
+#: (B, H, T, K, V, scale of r/k/v, scale of u, decays, layout): the JAX
 #: kernel tests' shapes, then rwkv6-7b's heads at ragged T for one and
 #: three rows ("model": the init's w0 = -6 plus N(0, 0.01^2), w ~ 0.9975,
-#: and the state grows over T; "jax": exp(-exp(N(0, 1)))).  "btk" passes
-#: [B, H, T, K] views of [B, T, H, K] tensors, as the model does.
+#: and the state grows over T; "jax": exp(-exp(N(0, 1)))), then V 16 (one
+#: 16-wide block of channels a CTA) and K != V.  "btk" passes [B, H, T, K]
+#: views of [B, T, H, K] tensors, as the model does.
 WKV_CASES = tuple(
-    [(1, 1, 32, 16, 0.5, 0.3, "jax", "bhtk"),
-     (2, 2, 64, 32, 0.5, 0.3, "jax", "bhtk"),
-     (1, 4, 128, 64, 0.5, 0.3, "jax", "bhtk")]
-    + [(b, 64, t, 64, 1.0, 0.1, decay, "btk")
+    [(1, 1, 32, 16, 16, 0.5, 0.3, "jax", "bhtk"),
+     (2, 2, 64, 32, 32, 0.5, 0.3, "jax", "bhtk"),
+     (1, 4, 128, 64, 64, 0.5, 0.3, "jax", "bhtk")]
+    + [(b, 64, t, 64, 64, 1.0, 0.1, decay, "btk")
        for b in (1, 3) for t in (1, 7, 128, 400, 2000)
-       for decay in ("model", "jax")])
+       for decay in ("model", "jax")]
+    + [(3, 64, 130, 64, 16, 1.0, 0.1, "model", "btk"),
+       (2, 4, 45, 16, 64, 0.5, 0.3, "jax", "btk")])
 
 
-def _wkv_inputs(torch, gen, dev, b, h, t, kk, scale, u_scale, decay, layout,
-                dtype):
-    shape = (b, t, h, kk) if layout == "btk" else (b, h, t, kk)
+def _wkv_inputs(torch, gen, dev, b, h, t, kk, vv, scale, u_scale, decay,
+                layout, dtype):
+    def shape(n):
+        return (b, t, h, n) if layout == "btk" else (b, h, t, n)
 
-    def normal(std):
-        return torch.randn(shape, generator=gen, device=dev) * std
+    def normal(n, std):
+        return torch.randn(shape(n), generator=gen, device=dev) * std
 
-    r, k, v = (normal(scale).to(dtype) for _ in range(3))
-    logw = normal(0.01) - 6.0 if decay == "model" else normal(1.0)
+    r, k = (normal(kk, scale).to(dtype) for _ in range(2))
+    v = normal(vv, scale).to(dtype)
+    logw = normal(kk, 0.01) - 6.0 if decay == "model" else normal(kk, 1.0)
     w = torch.exp(-torch.exp(logw))
     u = torch.randn((h, kk), generator=gen, device=dev) * u_scale
     if layout == "btk":
@@ -889,6 +928,14 @@ def _step_summary(widths):
                 "max_ms": max(v)} for k, v in out.items()}
 
 
+def _long_prefill(long_widths):
+    """The long request's prefill on its own: ms summed over its prefill
+    calls (one: the whole prompt at once), where the ``steps`` summary
+    mixes it with the wave's."""
+    ms = [sec * 1e3 for kind, sec in long_widths if kind == "prefill"]
+    return {"long_prefill_ms": sum(ms), "long_prefill_calls": len(ms)}
+
+
 def _tokens(out):
     from repro_torch.serving import decode_token_page
     return [decode_token_page(r["page"]).astype("int64") for r in out]
@@ -1018,8 +1065,9 @@ def hybrid_serve(torch, bd, fa, rg, dev, state):
     if not isinstance(impl.batcher, ContinuousBatcher):
         raise AssertionError(f"hybrid got {type(impl.batcher)}")
     widths = []
+    long_widths = []   # the long request's steps, timed apart
     _timed_steps(torch, engine.model, widths)
-    _timed_steps(torch, long_engine.model, widths)
+    _timed_steps(torch, long_engine.model, long_widths)
     fa.flash_attention.launches = 0
     rg.rglru_scan.launches = 0
     bd.decode_columns.launches = 0
@@ -1074,7 +1122,8 @@ def hybrid_serve(torch, bd, fa, rg, dev, state):
                      "cache_len": long_sc.cache_len, "window": cfg.window,
                      "wall_s": long_wall,
                      "tokens_per_s": LONG_NEW / long_wall},
-            "steps": _step_summary(widths), "launches": launches,
+            "steps": _step_summary(widths + long_widths),
+            **_long_prefill(long_widths), "launches": launches,
             "engine_stats": dict(engine.stats),
             "tokens_vs_plain": vs_plain, "scores": scores.tolist(),
             "plain_scores": ref_scores.tolist(), "score_tol": SCORE_TOL}
@@ -1119,8 +1168,9 @@ def rwkv_serve(torch, bd, rw, dev, state):
     if not isinstance(impl.batcher, ContinuousBatcher):
         raise AssertionError(f"rwkv got {type(impl.batcher)}")
     widths = []
+    long_widths = []   # the long request's steps, timed apart
     _timed_steps(torch, engine.model, widths)
-    _timed_steps(torch, long_engine.model, widths)
+    _timed_steps(torch, long_engine.model, long_widths)
     rw.rwkv6_scan.launches = 0
     bd.decode_columns.launches = 0
     t0 = time.perf_counter()
@@ -1195,7 +1245,8 @@ def rwkv_serve(torch, bd, rw, dev, state):
             "long": {"prompt": LONG_PROMPT, "new_tokens": RWKV_LONG_NEW,
                      "cache_len": long_sc.cache_len, "wall_s": long_wall,
                      "tokens_per_s": RWKV_LONG_NEW / long_wall},
-            "steps": _step_summary(widths),
+            "steps": _step_summary(widths + long_widths),
+            **_long_prefill(long_widths),
             "launches": {"rwkv6_scan.rwkv6_scan": launches,
                          "bebop_decode.decode_columns": page_launches},
             "engine_stats": dict(engine.stats),
@@ -1373,6 +1424,56 @@ def decode_rows(torch, bd, dev, gen, flush):
     return rows
 
 
+def scan_rows(torch, rg, rw, dev, gen, flush, plain=True):
+    """The RG-LRU scan at recurrentgemma-9b's longest served prompt of the
+    wave (T 400) and its 2,000-token prompt, in the float32 the model feeds
+    it; the WKV scan at rwkv6-7b's T 400 and T 2000, bf16 r/k/v and
+    float32 w/u as ``[B, H, T, K]`` views of ``[B, T, H, K]``, as the model
+    passes them.  Returns {row: entry}, the T 400 rows under the kernels'
+    names; works with any checkout's ``rg`` and ``rw``.  ``plain=False``
+    leaves out the plain loops (seconds each), which an A/B of two
+    checkouts' kernels does not need."""
+    rows = {}
+    for t in (max(PROMPT_LENS), LONG_PROMPT):
+        x = torch.randn((1, t, 4096), generator=gen, device=dev)
+        a = torch.rand((1, t, 4096), generator=gen, device=dev)
+        h = torch.empty_like(x)
+        entry = {
+            "ms": _cold_ms(torch, lambda: rg.rglru_scan(x, a), flush),
+            "bound_ms": (3 * x.numel() * 4 + 4096 * 4) / HBM_BYTES_PER_S
+            * 1e3, "bound_by": "bytes",
+            # no single PyTorch call computes a linear recurrence
+            # (cumsum/cumprod forms need a division by the running product)
+            "library_ms": None, "shape": f"x, a [1, {t}, 4096] float32",
+            # yardstick only, another function: one elementwise PyTorch
+            # call that moves the same bytes (x and a in, h out)
+            "add_same_bytes_ms": _cold_ms(
+                torch, lambda: torch.add(x, a, out=h), flush)}
+        if plain:
+            entry["plain_ms"] = _cold_ms(
+                torch, lambda: rg.rglru_scan_plain(x, a), flush, iters=5)
+        rows["rglru_scan" if t == max(PROMPT_LENS)
+             else f"rglru_scan@T{t}"] = entry
+    for t in (max(PROMPT_LENS), LONG_PROMPT):
+        r, k, v, w, u = _wkv_inputs(torch, gen, dev, 1, 64, t, 64, 64, 1.0,
+                                    0.1, "model", "btk", torch.bfloat16)
+        bound, by = _wkv_bound(1, 64, t, 64, 64)
+        entry = {
+            "ms": _cold_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u),
+                           flush),
+            "bound_ms": bound, "bound_by": by,
+            # no single PyTorch call computes the WKV recurrence
+            "library_ms": None,
+            "shape": f"r, k, v [1, 64, {t}, 64] bf16 (views of [B, T, H, K]),"
+                     f" w [1, 64, {t}, 64] f32, u [64, 64] f32"}
+        if plain:
+            entry["plain_ms"] = _cold_ms(torch, lambda: rw.rwkv6_scan_plain(
+                r, k, v, w, u), flush, iters=5)
+        rows["rwkv6_scan" if t == max(PROMPT_LENS)
+             else f"rwkv6_scan@T{t}"] = entry
+    return rows
+
+
 def timing(torch, bd, pa, fa, rg, rw, dev, state):
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -1492,53 +1593,22 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
             "launches": state["dense_launches"],
             "max_abs_err": state["flash_kernel"]["bf16_max_abs_err"],
             **entry})
-    # the RG-LRU scan at recurrentgemma-9b's longest served prompt of the
-    # wave, in the float32 the model feeds it
-    t = max(PROMPT_LENS)
-    x = torch.randn((1, t, 4096), generator=gen, device=dev)
-    a = torch.rand((1, t, 4096), generator=gen, device=dev)
-    nbytes = 3 * x.numel() * 4 + 4096 * 4
+    scans = scan_rows(torch, rg, rw, dev, gen, flush)
     kernels.append({
         "name": "rglru_scan.rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:51",
         "launches": state["hybrid_launches"]["rglru_scan.rglru_scan"],
         "max_abs_err": state["rglru_kernel"]["f32_h_max_abs_err"],
-        "ms": _cold_ms(torch, lambda: rg.rglru_scan(x, a), flush),
-        "plain_ms": _cold_ms(torch, lambda: rg.rglru_scan_plain(x, a), flush,
-                             iters=5),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        # no single PyTorch call computes a linear recurrence
-        # (cumsum/cumprod forms need a division by the running product)
-        "library_ms": None,
-        "shape": f"x, a [1, {t}, 4096] float32"})
-    # the WKV scan at rwkv6-7b's longest prompt of the wave (T 400) and,
-    # as an extra row, its 2,000-token prompt: bf16 r/k/v and float32 w/u,
-    # [B, H, T, K] views of [B, T, H, K] as the model passes them
-    for t in (max(PROMPT_LENS), LONG_PROMPT):
-        r, k, v, w, u = _wkv_inputs(torch, gen, dev, 1, 64, t, 64, 1.0, 0.1,
-                                    "model", "btk", torch.bfloat16)
-        bound, by = _wkv_bound(1, 64, t, 64, 64)
-        entry = {
-            "ms": _cold_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u),
-                           flush),
-            "plain_ms": _cold_ms(torch, lambda: rw.rwkv6_scan_plain(
-                r, k, v, w, u), flush, iters=5),
-            "bound_ms": bound, "bound_by": by,
-            # no single PyTorch call computes the WKV recurrence
-            "library_ms": None,
-            "shape": f"r, k, v [1, 64, {t}, 64] bf16 (views of [B, T, H, K]),"
-                     f" w [1, 64, {t}, 64] f32, u [64, 64] f32"}
-        if t == LONG_PROMPT:
-            extra[f"rwkv6_scan@T{t}"] = entry
-            continue
-        kernels.append({
-            "name": "rwkv6_scan.rwkv6_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
-            "replaces": "src/repro/kernels/rwkv6_scan.py:60",
-            "launches": state["rwkv_launches"],
-            "max_abs_err": state["rwkv_kernel"]["bf16_o_max_abs_err"],
-            **entry})
+        **scans.pop("rglru_scan")})
+    kernels.append({
+        "name": "rwkv6_scan.rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:60",
+        "launches": state["rwkv_launches"],
+        "max_abs_err": state["rwkv_kernel"]["bf16_o_max_abs_err"],
+        **scans.pop("rwkv6_scan")})
+    extra.update(scans)
     state["kernels"] = kernels
     return {"card": state["smi"], "extra": extra}
 

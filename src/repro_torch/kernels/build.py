@@ -32,10 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: flags for one source on top of NVCC_FLAGS.  The bf16 attention
-#: kernels keep their output accumulator in registers, so ptxas refuses
-#: a build of them that spills.
+#: kernels keep their output accumulator in registers, and the scans their
+#: state, so ptxas refuses a build of them that spills.
 _NO_SPILLS = ("-Xptxas", "-warn-spills,-Werror")
-SOURCE_FLAGS = {"flash_attention": _NO_SPILLS, "paged_attention": _NO_SPILLS}
+SOURCE_FLAGS = {name: _NO_SPILLS for name in (
+    "flash_attention", "paged_attention", "rglru_scan", "rwkv6_scan")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

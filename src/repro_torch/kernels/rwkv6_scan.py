@@ -11,7 +11,10 @@ the per-step decays in (0, 1] (already ``exp(-exp(.))``).  The result is
 runs :func:`rwkv6_scan_plain` for CPU tensors.  The kernel takes any T
 (the TPU kernel needs a multiple of its chunk), and reads r, k, v and w
 by their batch, head and time strides, so the model's ``[B, T, H, K]``
-projections reach it as transposed views, uncopied.
+projections reach it as transposed views, uncopied.  It splits V over
+CTAs and K over eight warps by residue mod 8, and sums o over K in the
+plain version's pairwise tree (``tests/test_torch_wkv_split.py`` holds
+that split to the plain version's bits on the CPU).
 :func:`rwkv6_chunked_plain` is the chunked-parallel form of the same
 function, which the model uses for ``cfg.rwkv_impl == "chunked"``.
 """
@@ -134,8 +137,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  r, k and v share one dtype (float32 or bfloat16);
-    w and u are float32.  Any strides over B, H and T; the last dim must
-    be contiguous.
+    w and u are float32.  Any strides over B, H and T whose rows start
+    16-byte aligned (a ``ValueError`` names the tensor otherwise); a last
+    dim that is not contiguous is copied.
     """
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u)
@@ -163,6 +167,15 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v, w = (x if x.stride(-1) == 1 else x.contiguous()
                   for x in (r, k, v, w))
     u = u.contiguous()
+    # the kernel copies rows into shared memory 16 bytes at a time
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if x.data_ptr() % 16 or any(
+                x.stride(d) * x.element_size() % 16
+                for d in range(3) if x.shape[d] > 1):
+            raise ValueError(
+                f"rows of {name} {tuple(x.shape)} (strides {x.stride()}, "
+                f"{x.dtype}) are not 16-byte aligned; the kernel reads "
+                f"them by 16-byte copies")
     o = torch.empty((b, h, t, vv), dtype=v.dtype, device=v.device)
     s = torch.zeros((b, h, kk, vv), dtype=torch.float32, device=v.device)
     if b == 0 or h == 0 or t == 0:

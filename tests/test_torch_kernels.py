@@ -262,10 +262,12 @@ def test_launch_count_exact_across_threads():
 def test_flash_build_refuses_spills_and_keys_its_library_by_its_flags(
         monkeypatch):
     """ptxas turns a spill in flash_attention.cu or paged_attention.cu (the
-    bf16 attention bodies) into an error, and the library's name hashes
+    bf16 attention bodies) or in the two scans into an error, and the
+    library's name hashes
     the flags it was built with, so a library built without that check is
     not reused."""
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "rglru_scan",
+                 "rwkv6_scan"):
         flags = build._flags(name)
         assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
         assert flags[-2:] == ("-Xptxas", "-warn-spills,-Werror")
@@ -532,13 +534,15 @@ def test_cuda_flash_kernel_matches_plain(cuda, dtype, atol, rtol, hq, hkv, d,
     assert not got[:, :, empty.to(cuda)].any()
 
 
-@pytest.mark.parametrize("dtype,atol,rtol", [
-    # the kernel rounds the multiply and the add apart, as the plain loop
-    (torch.float32, 1e-6, 1e-5),
-    (torch.bfloat16, 2e-2, 2e-2),
+# the kernel rounds the multiply and the add apart, as the plain loop does:
+# float32 h and h_final are bit-equal; bf16 h within one bf16 rounding
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d", [
+    (2, 300, 4096), (1, 1, 4096), (1, 2000, 4096),
+    (3, 17, 100), (3, 300, 100),   # a ragged last slab
+    (2, 65, 37),                   # rows off 16 bytes: the staged loads
 ])
-@pytest.mark.parametrize("b,t,d", [(2, 300, 4096), (1, 1, 4096), (3, 17, 100)])
-def test_cuda_rglru_kernel_matches_plain(cuda, dtype, atol, rtol, b, t, d):
+def test_cuda_rglru_kernel_matches_plain(cuda, dtype, b, t, d):
     rng = np.random.default_rng(t)
     x = rng.standard_normal((b, t, d)).astype(np.float32)
     a = rng.random((b, t, d)).astype(np.float32)
@@ -548,27 +552,52 @@ def test_cuda_rglru_kernel_matches_plain(cuda, dtype, atol, rtol, b, t, d):
     assert rg.rglru_scan.launches == before + 1
     h2, hf2 = rg.rglru_scan_plain(x, a)
     assert h.dtype == dtype and hf.dtype == torch.float32
-    torch.testing.assert_close(h.float(), h2.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(hf, hf2, atol=atol, rtol=rtol)
+    if dtype == torch.float32:
+        assert torch.equal(h, h2)
+        assert torch.equal(hf, hf2)
+    else:
+        torch.testing.assert_close(h.float(), h2.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(hf, hf2, atol=2e-2, rtol=2e-2)
+
+
+def test_cuda_rglru_kernel_on_a_base_off_16_bytes(cuda):
+    """x and a that start 4 bytes past an allocation's start take the
+    kernel's staged loads, not cp.async, and stay bit-exact."""
+    rng = np.random.default_rng(5)
+    n = 2 * 70 * 64
+    x, a = _t(rng.standard_normal(n + 1).astype(np.float32),
+              rng.random(n + 1).astype(np.float32))
+    x, a = [y.to(cuda)[1:].view(2, 70, 64) for y in (x, a)]
+    h, hf = rg.rglru_scan(x, a)
+    h2, hf2 = rg.rglru_scan_plain(x, a)
+    assert torch.equal(h, h2) and torch.equal(hf, hf2)
 
 
 # every product and sum is rounded as the plain loop rounds it, and o's
 # K-sum runs in its pairwise tree: o and the state bit-exact in both dtypes
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,t,kk,w0", [
-    (1, 1, 32, 16, None), (2, 2, 64, 32, None), (1, 4, 128, 64, None),
-    (2, 64, 7, 64, -6.0),     # rwkv6-7b's heads, ragged T, the init decay
-    (1, 64, 400, 64, -6.0),
-    (3, 8, 1, 64, None),
+@pytest.mark.parametrize("b,h,t,kk,vv,w0", [
+    (1, 1, 32, 16, 16, None), (2, 2, 64, 32, 32, None),
+    (1, 4, 128, 64, 64, None),
+    (2, 64, 7, 64, 64, -6.0),     # rwkv6-7b's heads, ragged T, the init decay
+    (1, 64, 400, 64, 64, -6.0),
+    (1, 64, 2000, 64, 64, -6.0),
+    (3, 8, 1, 64, 64, None),
+    (3, 64, 130, 64, 64, -6.0),   # three rows: several CTAs a head
+    (2, 4, 45, 64, 16, None),     # V 16: one 16-wide block of channels
+    (2, 3, 33, 16, 32, None),
+    (1, 2, 70, 32, 64, None),
 ])
-def test_cuda_rwkv6_kernel_matches_plain(cuda, dtype, b, h, t, kk, w0):
+def test_cuda_rwkv6_kernel_matches_plain(cuda, dtype, b, h, t, kk, vv, w0):
     """Decays ``exp(-exp(N(0, 1)))`` as in the JAX kernel tests, or near
     the model's init ``w0 = -6`` (w ~ 0.9975), where the state grows over
     T.  r, k, v, w reach the kernel as [B, H, T, K] views of [B, T, H, K]
     tensors, as the model passes them."""
-    rng = np.random.default_rng(t + kk)
-    r, k, v = (rng.standard_normal((b, t, h, kk)).astype(np.float32)
-               for _ in range(3))
+    rng = np.random.default_rng(t + kk + vv)
+    r, k = (rng.standard_normal((b, t, h, kk)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((b, t, h, vv)).astype(np.float32)
     logw = rng.standard_normal((b, t, h, kk)) * (0.5 if w0 else 1.0)
     w = np.exp(-np.exp(logw + (w0 or 0.0))).astype(np.float32)
     u = (rng.standard_normal((h, kk)) * 0.3).astype(np.float32)
@@ -582,3 +611,17 @@ def test_cuda_rwkv6_kernel_matches_plain(cuda, dtype, b, h, t, kk, w0):
     assert o.dtype == dtype and s.dtype == torch.float32
     assert torch.equal(s, s2)
     assert torch.equal(o, o2)
+
+
+def test_cuda_rwkv6_kernel_refuses_rows_off_16_bytes(cuda):
+    """The kernel copies rows by 16-byte cp.async: a row that starts off a
+    16-byte boundary raises, naming the tensor, and launches nothing."""
+    b, h, t, kk = 1, 2, 5, 16
+    flat = torch.randn(b * h * t * kk + 1, device=cuda)
+    r = flat[1:].view(b, h, t, kk)
+    k, v, w = (torch.randn(b, h, t, kk, device=cuda) for _ in range(3))
+    u = torch.randn(h, kk, device=cuda)
+    before = rw.rwkv6_scan.launches
+    with pytest.raises(ValueError, match="rows of r .*16-byte"):
+        rw.rwkv6_scan(r, k, v, w.sigmoid(), u)
+    assert rw.rwkv6_scan.launches == before
