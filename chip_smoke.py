@@ -12,7 +12,10 @@ serving paths at full width, with weights drawn from a seeded
 
 * the paged path: qwen2-1.5b (28 layers, d_model 1536, bf16) through the
   page-level ``Infer`` path (``InferenceImpl.infer``: device page decode
-  -> greedy ``PagedBatcher`` -> paged attention kernels);
+  -> ``PagedBatcher`` -> paged attention kernels), and then through the
+  port's Bebop RPC server over TCP (``rpc_serve``: the nine methods,
+  seeded sampling with n = 3 forks and rejection-sampled spec decode,
+  preemption and swap at a 1,100-key context, the launcher's ``--once``);
 * the dense path: the same model with ``ServeConfig(paged=False)``
   (``ContinuousBatcher`` -> ``Engine.generate``: flash attention kernel
   in the prefill), the paged batcher's dense fallback and ``score_page``;
@@ -45,6 +48,7 @@ import concurrent.futures as cf
 import dataclasses
 import json
 import os
+import queue
 import subprocess
 import sys
 import time
@@ -219,6 +223,7 @@ def main(argv=None) -> int:
     Phase("model")(lambda: check_model(torch, dev, state))
     Phase("serve")(lambda: serve(torch, bd, pa, dev, state))
     Phase("profile")(lambda: profile(torch, dev, state))
+    Phase("rpc_serve")(lambda: rpc_serve(torch, bd, pa, dev, state))
     Phase("dense_serve")(lambda: dense_serve(torch, fa, dev, state))
     Phase("hybrid_serve")(lambda: hybrid_serve(torch, bd, fa, rg, dev,
                                                  state))
@@ -809,6 +814,7 @@ def serve(torch, bd, pa, dev, state):
     n_tokens = sum(r["new_tokens"] for r in out)
     state["launches"] = launches
     state["serve_tokens"] = toks[:len(prompts)]
+    state["serve_tokens_per_s"] = n_tokens / wall
     return {"requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
             "tokens_per_s": n_tokens / wall, "launches": launches,
             "steps": len(widths),
@@ -862,6 +868,598 @@ def profile(torch, dev, state):
             "device_ops_per_step": len(dev_events) / max(steps, 1),
             "top_device_ms": dict(sorted(top.items(),
                                          key=lambda kv: -kv[1])[:8])}
+
+
+# -- the RPC front door ----------------------------------------------------------
+
+# Sampled tokens against the plain replay.  A sampled token is the inverse
+# CDF of the filtered distribution at a seeded uniform (serving/sampling.py),
+# so the kernel path and the plain replay draw different tokens only where
+# an edge of the CDF moved past the uniform.  An edge m moves by
+# sum_{i<=m} p_i (dx_i - E_p[dx]) / T when the logits move by dx, and the
+# walk runs in vocabulary order, so a shift of one likely token's mass
+# moves the intervals of every token after it.  On an H100 the largest
+# distance between the two paths' top-k 40 CDFs at T 0.8 was 0.020 over
+# one candidate's 8 prefixes (the logits differ by up to 0.071, PERF.md
+# section 2, and the random-weight model puts much of the mass on one
+# token); SAMPLE_EPS is twice that, as LOGIT_TOL is twice the largest
+# logit difference.  Such shifts make splits common (on that card all 6
+# candidates of the two n = 3 requests split from a free-running replay
+# within 2 tokens), so each token is checked on its own prefix (teacher
+# forcing) and the count of splits is held to what the measured
+# distributions predict.
+SAMPLE_EPS = 0.04
+SAMPLE_GEN = dict(temperature=0.8, top_k=40, seed=1234)     # Generate, n 3
+SAMPLE_SPEC = dict(temperature=0.5, top_k=3, seed=77)       # Infer, spec on
+SAMPLE_TOP_P = dict(temperature=0.8, top_p=0.9, seed=5)     # step timing
+RPC_NEW = 16
+# preemption through the server: a 1,000-token prompt (context past 1,024
+# keys) and a 300-token one at priority 0 fill a pool of 98 usable blocks
+# (69 + 21 of them), then a 200-token prompt at priority 1 pages the larger
+# one out to host; it resumes once the 300-token one finishes
+SWAP_LENS, SWAP_NEW, SWAP_BLOCKS = (1000, 300, 200), (100, 32, 32), 99
+
+
+def _gate(batcher):
+    """Hold ``batcher``'s admission until :func:`_release`, so a wave sent
+    from many client threads is admitted as one, in a canonical order:
+    two runs then schedule alike, step for step."""
+    import threading
+    gate = threading.Event()
+    admit = batcher._admit
+
+    def gated():
+        gate.wait()
+        return admit()
+    batcher._admit = gated
+    return gate
+
+
+def _release(batcher, gate, order, n, timeout=120.0):
+    """Wait until ``n`` requests are queued, sort the queue by ``order``
+    (a key of the prompt tokens) and open the gate."""
+    import collections
+    end = time.monotonic() + timeout
+    while True:
+        with batcher._cond:
+            if len(batcher._queue) >= n:
+                batcher._queue = collections.deque(sorted(
+                    batcher._queue, key=lambda p: order(p.tokens)))
+                break
+        if time.monotonic() > end:
+            raise AssertionError(f"{len(batcher._queue)} of {n} requests "
+                                 f"queued")
+        time.sleep(0.002)
+    gate.set()
+
+
+def _wave(impl, call, requests):
+    """Send every request from its own client thread through the gate;
+    returns (responses, per-request wall seconds, wave wall seconds)."""
+    import numpy as np
+    from repro_torch.serving import decode_token_page
+    keys = {decode_token_page(page).astype(np.int32).tobytes(): i
+            for i, (page, _kw) in enumerate(requests)}
+    gate = _gate(impl.batcher)
+
+    def one(req):
+        t0 = time.perf_counter()
+        out = call(*req)
+        return out, time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(len(requests)) as ex:
+        futs = [ex.submit(one, r) for r in requests]
+        _release(impl.batcher, gate,
+                 lambda t: keys.get(np.asarray(t, np.int32).tobytes(), -1),
+                 len(requests))
+        res = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    del impl.batcher._admit          # the class's again
+    return [r for r, _ in res], [s for _, s in res], wall
+
+
+def _step_timer(torch, batcher, steps):
+    """Record the seconds of every scheduler step (device step, logits to
+    the host and the token picks) in ``steps``."""
+    step = batcher._step
+
+    def timed():
+        t0 = time.perf_counter()
+        step()
+        steps.append(time.perf_counter() - t0)
+    batcher._step = timed
+
+
+def _probs_after(torch, eng, seq, sp):
+    """``eng``'s filtered sampling distribution after ``seq`` (float64
+    [V]), from a dense prefill: the replay engine runs the plain
+    versions, the kernel engine the kernels."""
+    from repro_torch.serving import sampling
+    toks = torch.tensor([list(seq)], dtype=torch.int32, device=eng.device)
+    logits, _ = eng.model.prefill(eng.params, {"tokens": toks}, len(seq))
+    return sampling.target_probs(logits[0].float().cpu().numpy()[None],
+                                 sp)[0]
+
+
+def _interval_dist(probs, tok, u):
+    """How far the uniform ``u`` lies from the interval of ``tok`` in the
+    inverse-CDF walk over ``probs`` (0 inside it)."""
+    import numpy as np
+    hi = float(np.cumsum(probs)[tok])
+    lo = hi - float(probs[tok])
+    return 0.0 if lo <= u < hi else min(abs(u - lo), abs(u - hi))
+
+
+def _draw_mismatch(pa, pb):
+    """The share of uniforms for which the inverse-CDF draws over ``pa``
+    and ``pb`` pick different tokens: the chance that two paths with
+    these distributions split at one sampled index."""
+    import numpy as np
+    ca, cb = np.cumsum(pa), np.cumsum(pb)
+    edges = np.unique(np.concatenate([[0.0], ca, cb, [1.0]]))
+    edges = edges[(edges >= 0) & (edges <= 1)]
+    mid = (edges[:-1] + edges[1:]) / 2
+    ta = np.searchsorted(ca, mid, side="right")
+    tb = np.searchsorted(cb, mid, side="right")
+    return float(np.sum(np.diff(edges)[ta != tb]))
+
+
+def _forced_sampled(torch, ref, kern, prompt, toks, sp, what):
+    """Every sampled token of ``toks`` ([n, T]: row r is candidate r)
+    against the plain replay on the row's own prefix (teacher forcing, so
+    one split does not end a row's comparison).  At index j the replay
+    draws from its filtered distribution at the schedule's uniform; where
+    it picks another token than the kernel path did, the split is
+    legitimate only if that uniform lies within SAMPLE_EPS of the kernel
+    token's interval in the replay's CDF, or the kernel path's own
+    distribution on the same prefix draws the kernel token there.  The
+    count of such splits may not exceed MAX_SPLITS or twice the count the
+    measured distributions predict, whichever is larger."""
+    import math
+
+    import numpy as np
+    from repro_torch.serving import sampling
+    splits, expected, worst_shift, dists = 0, 0.0, 0.0, []
+    for row in range(toks.shape[0]):
+        for j in range(toks.shape[1]):
+            seq = [int(x) for x in prompt] + [int(x) for x in toks[row, :j]]
+            pr = _probs_after(torch, ref, seq, sp)
+            pk = _probs_after(torch, kern, seq, sp)
+            worst_shift = max(worst_shift, float(np.abs(
+                np.cumsum(pr) - np.cumsum(pk)).max()))
+            expected += _draw_mismatch(pr, pk)
+            u = float(sampling._uniform_at(sp.seed, j, 1, row)[0, 0])
+            k = int(toks[row, j])
+            if sampling._inverse_cdf(pr, u) == k:
+                continue
+            dist = _interval_dist(pr, k, u)
+            dists.append(dist)
+            if dist > SAMPLE_EPS and sampling._inverse_cdf(pk, u) != k:
+                raise AssertionError(
+                    f"{what}: candidate {row} index {j} drew {k}; the "
+                    f"replay's interval of it is {dist} from the uniform "
+                    f"{u} (limit {SAMPLE_EPS}) and the kernel path's own "
+                    f"distribution draws another token")
+            splits += 1
+    limit = max(MAX_SPLITS, math.ceil(2 * expected))
+    if splits > limit:
+        raise AssertionError(f"{what}: {splits} splits, more than {limit} "
+                             f"(the measured distributions predict "
+                             f"{expected:.2f})")
+    return {"tokens_checked": int(toks.size), "splits_within_tolerance":
+            splits, "splits_predicted": expected, "split_limit": limit,
+            "split_interval_distances": dists, "cdf_shift_max": worst_shift}
+
+
+def _spec_edges(probs):
+    """Where a speculative decision at one index flips, as a function of
+    its two uniforms: the accept test compares ``u[0]`` with p(draft),
+    the bonus draw walks the CDF with ``u[0]``, a residual resample walks
+    the residual CDF (p with the draft zeroed) with ``u[1]``."""
+    import numpy as np
+    kept = np.nonzero(probs > 0)[0]
+    e0 = np.concatenate([np.cumsum(probs)[kept], probs[kept]])
+    e1 = []
+    for d in kept:
+        resid = probs.copy()
+        resid[d] = 0.0
+        if resid.sum() > 1e-12:
+            e1 += list(np.cumsum(resid / resid.sum())[kept[kept != d]])
+    return e0, np.asarray(e1)
+
+
+def _spec_match(torch, ref, kern, prompt, got, want, sp, what):
+    """A sampled request served with spec decode against the plain replay
+    with the same ServeConfig (free running: its drafts and accept tests
+    are part of the stream): equal, or the first split lies where one of
+    the replay's uniforms at that index is within SAMPLE_EPS of one of
+    its decision edges (the row is compared only up to it)."""
+    import numpy as np
+    from repro_torch.serving import sampling
+    out = {"tokens_checked": 0, "splits_within_tolerance": 0}
+    for row in range(got.shape[0]):
+        diff = np.nonzero(got[row] != want[row])[0]
+        if diff.size == 0:
+            out["tokens_checked"] += got.shape[1]
+            continue
+        j = int(diff[0])
+        out["tokens_checked"] += j
+        seq = [int(x) for x in prompt] + [int(x) for x in want[row, :j]]
+        e0, e1 = _spec_edges(_probs_after(torch, ref, seq, sp))
+        u = sampling._uniform_at(sp.seed, j, 1, row)[0]
+        dist = min(float(np.abs(e0 - u[0]).min()),
+                   float(np.abs(e1 - u[1]).min()) if e1.size
+                   else float("inf"))
+        if dist > SAMPLE_EPS:
+            raise AssertionError(f"{what}: split at output {j}, uniforms "
+                                 f"{u.tolist()} {dist} from the replay's "
+                                 f"nearest decision edge")
+        out["splits_within_tolerance"] += 1
+        out["split_edge_distance"] = dist
+    return out
+
+
+def _rpc_host_us(service, wire, req, resp, calls=200):
+    """The RPC layer's host time for one Infer round trip, without the
+    handler: the client's request encode, the server's request decode and
+    response encode, the client's response decode, and the frames."""
+    from repro_torch.core.rpc import Flags, Frame, FrameReader, encode_frame
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        body = wire.encode(service.InferRequest, req)
+        reader = FrameReader()
+        frame, = reader.feed(encode_frame(Frame(1, body, Flags.END_STREAM)))
+        wire.decode(service.InferRequest, frame.payload)
+        out = wire.encode(service.InferResponse, resp)
+        frame, = reader.feed(encode_frame(Frame(1, out, Flags.END_STREAM)))
+        wire.decode(service.InferResponse, frame.payload)
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _host_probs_ms(sampling, vocab, calls=5):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 9)
+    logits = (rng.standard_normal((1, vocab)) * 0.78).astype(np.float32)
+    out = {}
+    for name, kw in (("top_k_40", SAMPLE_GEN), ("top_p_0.9", SAMPLE_TOP_P)):
+        sp = sampling.SamplingParams(**kw)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            sampling._host_probs(logits, sp)
+        out[name] = (time.perf_counter() - t0) / calls * 1e3
+    return out
+
+
+def rpc_serve(torch, bd, pa, dev, state):
+    """The port's Bebop RPC server (``build_server`` + ``listen_tcp``)
+    driven over TCP by the port's ``Channel``: the nine serve prompts by
+    ``Infer`` (page bytes equal to ``InferenceImpl.infer``'s in process),
+    sampled waves, a seeded ``Generate`` with n = 3, a sampled ``Infer``
+    with spec decode, ``InferStream``, an ``Infer`` -> ``ScorePage`` batch,
+    ``Stats`` and ``Health``; a second server whose small pool preempts
+    and swaps a request past 1,024 keys; and the launcher's ``--once``
+    probe as a subprocess."""
+    import numpy as np
+    from repro_torch.core import wire
+    from repro_torch.core.rpc import Channel, Status, TcpTransport
+    from repro_torch.serving import (Engine, InferenceImpl, SamplingParams,
+                                     ServeConfig, build_server,
+                                     decode_token_page, encode_prompt_page,
+                                     sampling, service)
+
+    engine = state["engine"]
+    cfg = engine.cfg
+    ref = Engine(dataclasses.replace(cfg, attention_impl="reference"),
+                 ServeConfig(), params=engine.params, device=dev)
+    prompts = _prompts(cfg.vocab_size)
+    pages = [encode_prompt_page(p[None]) for p in prompts]
+    counters = (bd.decode_columns, pa.paged_attention,
+                pa.paged_prefill_attention)
+    for fn in counters:
+        fn.launches = 0
+    info = {}
+
+    def local_wave(kw, steps):
+        """The nine prompts by ``InferenceImpl.infer`` in process."""
+        local = InferenceImpl(engine)
+        _step_timer(torch, local.batcher, steps)
+        try:
+            return _wave(local, lambda page, k: local.infer(page, **k),
+                         [(p, {"max_new_tokens": RPC_NEW, **kw})
+                          for p in pages])
+        finally:
+            local.close()
+
+    def tcp_wave(kw, steps):
+        """The nine prompts by ``Infer`` over TCP, one connection each, to
+        a fresh server (a fresh batcher: no prefix cache carried over)."""
+        wimpl = InferenceImpl(engine)
+        _step_timer(torch, wimpl.batcher, steps)
+        wserver = build_server(engine, impl=wimpl)
+        whost, wport, _ = wserver.listen_tcp()
+        clients = queue.Queue()
+        chs = [Channel(TcpTransport.connect(whost, wport)) for _ in pages]
+        for ch in chs:
+            clients.put(ch.typed(service.InferenceService))
+
+        def rpc_infer(page, k):
+            inf = clients.get()
+            try:
+                return inf.Infer({"page": page, **k})
+            finally:
+                clients.put(inf)
+        try:
+            return _wave(wimpl, rpc_infer,
+                         [(p, {"max_new_tokens": RPC_NEW, **kw})
+                          for p in pages])
+        finally:
+            for ch in chs:
+                ch.close()
+            wserver.drain(timeout=30)
+            wimpl.close()
+
+    def summary(runs, steps):
+        n_tok = sum(int(o["new_tokens"]) for o in runs[0][0])
+        lat = np.concatenate([np.asarray(s) for _, s, _ in runs]) * 1e3
+        return {"tokens_per_s": [n_tok / w for _, _, w in runs],
+                "request_ms_p50": float(np.percentile(lat, 50)),
+                "request_ms_p95": float(np.percentile(lat, 95)),
+                "step_ms_mean": 1e3 * sum(steps) / len(steps),
+                "steps": len(steps)}
+
+    # greedy: in process, TCP, TCP, in process (the spread of each); every
+    # wave is admitted as one, in one order, so all four give the same
+    # bytes as the first in-process wave
+    runs = {"inprocess": [], "tcp": []}
+    steps = {"inprocess": [], "tcp": []}
+    for kind in ("inprocess", "tcp", "tcp", "inprocess"):
+        fn = local_wave if kind == "inprocess" else tcp_wave
+        runs[kind].append(fn({}, steps[kind]))
+    want = [o["page"] for o in runs["inprocess"][0][0]]
+    for kind, rs in runs.items():
+        for out, _, _ in rs:
+            for i, (o, w) in enumerate(zip(out, want)):
+                if bytes(bytearray(o["page"])) != w:
+                    raise AssertionError(f"prompt {i}: a {kind} wave's page "
+                                         f"differs from InferenceImpl.infer's")
+    info["greedy_wave"] = {
+        "requests": len(pages), "new_tokens": RPC_NEW,
+        "pages_equal_inprocess": True,
+        "serve_phase_tokens_per_s": state.get("serve_tokens_per_s"),
+        **{k: summary(runs[k], steps[k]) for k in runs}}
+
+    # sampled waves over TCP: the same prompts, top-k 40, then top-p 0.9
+    for name, kw in (("top_k_40", SAMPLE_GEN), ("top_p_0.9", SAMPLE_TOP_P)):
+        st = []
+        run = tcp_wave(kw, st)
+        toks = [decode_token_page(bytes(bytearray(o["page"])))
+                for o in run[0]]
+        if any(t.shape != (1, RPC_NEW) or int(t.max()) >= cfg.vocab_size
+               for t in toks):
+            raise AssertionError(f"sampled wave {name}: bad pages")
+        info[f"sampled_wave_{name}"] = summary([run], st)
+
+    impl = InferenceImpl(engine)
+    server = build_server(engine, impl=impl)
+    host, port, _ = server.listen_tcp()
+    chans = []
+
+    def typed():
+        ch = Channel(TcpTransport.connect(host, port))
+        chans.append(ch)
+        return ch.typed(service.InferenceService)
+
+    try:
+        inf = typed()
+        # seeded Generate, n = 3, top-k 40, each token against the plain
+        # replay on its own prefix
+        sp = SamplingParams(**SAMPLE_GEN)
+        gp = prompts[1]
+        gen = inf.Generate({"tokens": gp.astype(np.uint32), "batch": 1,
+                            "seq_len": len(gp), "max_new_tokens": 8, "n": 3,
+                            **SAMPLE_GEN})
+        gtok = np.asarray(gen["tokens"]).reshape(3, -1).astype(np.int64)
+        if gtok.shape != (3, 8) or len({tuple(r) for r in gtok}) < 2:
+            raise AssertionError(f"n=3 candidates: {gtok}")
+        info["generate_n3"] = {**_forced_sampled(
+            torch, ref, engine, gp, gtok, sp, "Generate n=3"),
+            "sampling": SAMPLE_GEN}
+        # the same request as a paged Infer: one prefill forked into three
+        # candidates over shared prompt blocks
+        before = impl.batcher.collect_stats()
+        fres = inf.Infer({"page": pages[1], "max_new_tokens": 8, "n": 3,
+                          **SAMPLE_GEN})
+        forks = impl.batcher.collect_stats()["forks"] - before["forks"]
+        ftok = decode_token_page(bytes(bytearray(fres["page"]))).astype(
+            np.int64)
+        if forks != 2 or ftok.shape != (3, 8):
+            raise AssertionError(f"n=3 Infer: forks {forks}, {ftok.shape}")
+        info["infer_n3_fork"] = {"forks": forks, **_forced_sampled(
+            torch, ref, engine, gp, ftok, sp, "Infer n=3 fork")}
+
+        # sampled Infer with spec decode on, against the plain replay with
+        # the same ServeConfig (spec decode on too)
+        sp = SamplingParams(**SAMPLE_SPEC)
+        before = impl.batcher.collect_stats()
+        sres = inf.Infer({"page": pages[5], "max_new_tokens": 24,
+                          **SAMPLE_SPEC})
+        after = impl.batcher.collect_stats()
+        ref_impl = InferenceImpl(ref)
+        rres = ref_impl.infer(pages[5], max_new_tokens=24, **SAMPLE_SPEC)
+        rstats = ref_impl.batcher.collect_stats()
+        ref_impl.close()
+        stok = decode_token_page(bytes(bytearray(sres["page"]))).astype(
+            np.int64)
+        rtok = decode_token_page(rres["page"]).astype(np.int64)
+        spec = {k: after[k] - before[k] for k in
+                ("spec_steps", "spec_proposed", "spec_accepted",
+                 "spec_resamples", "sampled_requests")}
+        m = _spec_match(torch, ref, engine, prompts[5], stok, rtok, sp,
+                        "spec Infer vs plain replay")
+        if spec["spec_steps"] <= 0:
+            raise AssertionError(f"sampled Infer ran no verify step: {spec}")
+        if not m["splits_within_tolerance"] \
+                and spec["spec_resamples"] != rstats["spec_resamples"]:
+            raise AssertionError(f"spec_resamples {spec} vs replay "
+                                 f"{rstats['spec_resamples']}")
+        info["spec_infer"] = {**m, "stats": spec,
+                              "replay_spec_resamples":
+                              rstats["spec_resamples"],
+                              "sampling": SAMPLE_SPEC}
+
+        # InferStream: chunks joined equal the dense engine's tokens (the
+        # stream runs Engine.generate) and the paged Infer page
+        chunks = list(inf.InferStream({"page": pages[0],
+                                       "max_new_tokens": RPC_NEW}))
+        joined = np.concatenate([decode_token_page(bytes(bytearray(
+            c["page"]))) for c in chunks], axis=1)
+        dense = engine.generate(prompts[0][None], max_new_tokens=RPC_NEW)
+        if [c["index"] for c in chunks] != list(range(RPC_NEW)) \
+                or not np.array_equal(joined, dense):
+            raise AssertionError("InferStream chunks differ from "
+                                 "Engine.generate")
+        info["infer_stream"] = {
+            "chunks": len(chunks),
+            "vs_infer_page": _match(
+                torch, ref, [prompts[0][None]], [joined.astype(np.int64)],
+                [decode_token_page(want[0]).astype(np.int64)],
+                "InferStream vs Infer")}
+
+        # Infer -> ScorePage in one batch, against two calls
+        iid = service.InferenceService.method("Infer").id
+        sid = service.InferenceService.method("ScorePage").id
+        req = {"page": pages[3], "max_new_tokens": 8}
+        ch = chans[-1]
+        t0 = time.perf_counter()
+        res = ch.batch([{"method_id": iid, "payload": wire.encode(
+            service.InferRequest, req)}, {"method_id": sid,
+                                          "input_from": 0}])
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        if [r["status"] for r in res] != [Status.OK] * 2:
+            raise AssertionError(f"batch statuses {res}")
+        bscore = wire.decode(service.ScoreResponse,
+                             res[1]["payload"])["scores"]
+        page = bytes(bytearray(inf.Infer(req)["page"]))
+        alone = inf.ScorePage({"page": page})["scores"]
+        if not np.allclose(bscore, alone, atol=F32_ATOL, rtol=F32_RTOL) \
+                or not np.isfinite(bscore).all():
+            raise AssertionError(f"batched score {bscore} vs {alone}")
+        info["infer_scorepage_batch"] = {"batch_ms": batch_ms,
+                                         "score": float(bscore[0]),
+                                         "separate_calls_score":
+                                         float(alone[0])}
+
+        st = inf.Stats({})
+        names = st["names"].split("\n")
+        health = inf.Health({"verbose": True})
+        if not health["serving"] or health["draining"] \
+                or "sampled_requests" not in names:
+            raise AssertionError(f"Stats/Health: {health}")
+        stats = dict(zip(names, np.asarray(st["values"]).tolist()))
+        info["stats"] = {k: stats[k] for k in (
+            "requests", "sampled_requests", "forks", "spec_steps",
+            "spec_resamples", "decode_steps", "mixed_steps",
+            "ingest_pages")}
+        info["health"] = {"serving": bool(health["serving"]),
+                          "inflight": int(health["inflight"])}
+        info["rpc_host_us_per_infer"] = _rpc_host_us(
+            service, wire, {"page": pages[8], "max_new_tokens": RPC_NEW},
+            {"page": want[8], "batch": 1, "new_tokens": RPC_NEW})
+        info["host_probs_ms"] = {"vocab": cfg.vocab_size, **_host_probs_ms(
+            sampling, cfg.vocab_size)}
+    finally:
+        for ch in chans:
+            ch.close()
+        server.drain(timeout=30)
+        impl.close()
+    launches = {f"{fn.__module__.split('.')[-1]}.{fn.__name__}": fn.launches
+                for fn in counters}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels not launched through the server: "
+                             f"{launches}")
+    info["launches"] = launches
+    info["preempt_swap"] = _rpc_preempt(torch, dev, engine, ref)
+    info["launcher_once"] = _launcher_once()
+    return info
+
+
+def _rpc_preempt(torch, dev, engine, ref):
+    """A second server with a pool of SWAP_BLOCKS blocks at cache_len 2048:
+    two priority-0 requests fill it, a priority-1 request pages the
+    1,000-token one (context 1,100 keys) out to host, and it resumes; the
+    tokens must equal the plain replay's under the greedy split rule."""
+    import numpy as np
+    from repro_torch.core.rpc import Channel, TcpTransport
+    from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
+                                     build_server, decode_token_page,
+                                     encode_prompt_page, service)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(0, engine.cfg.vocab_size, n) for n in SWAP_LENS]
+    sc = ServeConfig(cache_len=2048, num_blocks=SWAP_BLOCKS)
+    small = Engine(engine.cfg, sc, params=engine.params, device=dev)
+    impl = InferenceImpl(small)
+    server = build_server(small, impl=impl)
+    host, port, _ = server.listen_tcp()
+    chans = [Channel(TcpTransport.connect(host, port)) for _ in prompts]
+    try:
+        def call(i, prio):
+            inf = chans[i].typed(service.InferenceService)
+            return inf.Infer({"page": encode_prompt_page(prompts[i][None]),
+                              "max_new_tokens": SWAP_NEW[i],
+                              "priority": prio})
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(3) as ex:
+            low = [ex.submit(call, i, 0) for i in (0, 1)]
+            end = time.monotonic() + 120
+            while impl.batcher.collect_stats()["active_requests"] < 2:
+                if time.monotonic() > end:
+                    raise AssertionError("low-priority requests not active")
+                time.sleep(0.005)
+            high = ex.submit(call, 2, 1)
+            out = [f.result(timeout=600) for f in low + [high]]
+        wall = time.perf_counter() - t0
+        stats = impl.batcher.collect_stats()
+    finally:
+        for ch in chans:
+            ch.close()
+        server.drain(timeout=30)
+        impl.close()
+    if stats["preemptions"] < 1 or stats["swap_ins"] < 1:
+        raise AssertionError(f"no preemption/swap: {stats}")
+    got = [decode_token_page(bytes(bytearray(o["page"]))).astype(np.int64)
+           for o in out]
+    want = [ref.generate(p[None], max_new_tokens=n).astype(np.int64)
+            for p, n in zip(prompts, SWAP_NEW)]
+    return {"wall_s": wall, "preemptions": stats["preemptions"],
+            "swap_ins": stats["swap_ins"],
+            "swapped_blocks": stats["swapped_blocks"],
+            "longest_context": SWAP_LENS[0] + SWAP_NEW[0],
+            "tokens_vs_plain": _match(torch, ref, [p[None] for p in prompts],
+                                      got, want, "preempted vs plain")}
+
+
+def _launcher_once():
+    """``python -m repro_torch.launch.serve --arch qwen2-1.5b --full
+    --once`` as a subprocess: it must exit 0 after its probe line."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    for p in sys.path:
+        if os.path.isdir(os.path.join(p, "repro_torch")):
+            src = p
+            break
+    env = dict(os.environ, PYTHONPATH=src)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "qwen2-1.5b", "--full", "--once"],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    probe = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("probe generated 4 tokens")]
+    if out.returncode != 0 or not probe:
+        raise AssertionError(f"launcher --once exited {out.returncode}: "
+                             f"{out.stdout[-500:]} {out.stderr[-1500:]}")
+    return {"exit_code": out.returncode, "seconds":
+            time.perf_counter() - t0, "probe": probe[0],
+            "serving_line": out.stdout.splitlines()[0]}
 
 
 # -- the dense paths ------------------------------------------------------------

@@ -1,17 +1,21 @@
 """PyTorch + CUDA port of the serving path of :mod:`repro`.
 
 The package mirrors the JAX package's module names (``configs``,
-``core``, ``kernels``, ``models``, ``serving``, ``checkpoint``) so each
-module's counterpart is easy to find, and imports only ``torch``,
-``numpy`` and the standard library: what it needs from the JAX package's
-JAX-free modules is copied here, trimmed to what the port uses.
+``core``, ``kernels``, ``models``, ``serving``, ``checkpoint``,
+``launch``) so each module's counterpart is easy to find, and imports
+only ``torch``, ``numpy`` and the standard library: what it needs from
+the JAX package's JAX-free modules is copied here, trimmed to what the
+port uses.
 
-The slice ported so far is the page-level ``Infer`` path: a Bebop prompt
-page is decoded on the device by a hand-written CUDA kernel
-(:mod:`.kernels.bebop_decode`), the greedy
-:class:`~repro_torch.serving.engine.PagedBatcher` schedules it, and the
-paged decoder LM runs its attention through hand-written CUDA paged
-attention kernels (:mod:`.kernels.paged_attention`).
+The main path is the request ``launch/serve.py`` serves: a Bebop RPC
+``Infer`` carries a prompt page, which is decoded on the device by a
+hand-written CUDA kernel (:mod:`.kernels.bebop_decode`); the
+:class:`~repro_torch.serving.engine.PagedBatcher` schedules it (greedy
+or seeded sampling), and the paged decoder LM runs its attention through
+hand-written CUDA paged attention kernels
+(:mod:`.kernels.paged_attention`).  The dense paths (qwen2-1.5b,
+recurrentgemma-9b, rwkv6-7b) run the flash attention, RG-LRU and WKV
+kernels.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU device they raise.

@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import types as T
+from .fastwire import static_dtype
 
 _WIRE_NAMES = {
     "uint32": ("uint32", 4), "int32": ("int32", 4), "float32": ("float32", 4),
@@ -80,7 +81,7 @@ def _field_column(name: str, ft: T.Type, offset: int) -> Optional[ColumnSpec]:
 
 def plan_device_layout(s: T.Struct) -> DeviceLayout:
     """Static column plan for a fixed-layout struct."""
-    dt = T.static_dtype(s)
+    dt = static_dtype(s)
     if dt is None:
         raise T.SchemaError(
             f"struct {s.name} is not fixed-layout; device decode requires "

@@ -1,7 +1,8 @@
 """MurmurHash3 (x86_32) with the lowbias32 finalizer.
 
 Copied from the JAX package's ``core/hashing.py``: page headers carry
-``schema_hash(name)``, so both packages must compute the same 32 bits.
+``schema_hash(name)`` and RPC frames ``method_id(service, method)``, so both
+packages must compute the same 32 bits.
 """
 from __future__ import annotations
 
@@ -56,3 +57,8 @@ def murmur3_lowbias32(data: bytes, seed: int = 0) -> int:
 
 def schema_hash(name: str) -> int:
     return murmur3_lowbias32(name.encode("utf-8"), seed=0x42454250)  # "BEBP"
+
+
+def method_id(service: str, method: str) -> int:
+    """Stable 32-bit routing ID for ``/ServiceName/MethodName``."""
+    return murmur3_lowbias32(f"/{service}/{method}".encode("utf-8"))

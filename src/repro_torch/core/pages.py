@@ -1,7 +1,8 @@
 """Record pages: a checksummed ``[record_count, record_stride]`` byte matrix.
 
 Copied from the JAX package's ``core/pages.py`` (page write, header read,
-payload validation), so the port reads and writes the same bytes.
+payload validation, page iteration and cursor seek), so the port reads and
+writes the same bytes.
 
 Page layout (all little-endian):
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import struct as _struct
 import zlib
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -83,6 +84,10 @@ def write_page(schema_name: str, records: np.ndarray,
     return header + raw + b"\x00" * (total - HEADER_SIZE - len(raw))
 
 
+def page_size(header: PageHeader) -> int:
+    return _pad_to(HEADER_SIZE + header.payload_bytes, PAGE_ALIGN)
+
+
 def read_header(buf, offset: int = 0) -> PageHeader:
     if len(buf) - offset < HEADER_SIZE:
         raise PageError("truncated page header")
@@ -128,3 +133,22 @@ def read_payload(buf, offset: int = 0, *, verify: bool = True,
             raise PageError("payload CRC mismatch (corrupt page)")
     arr = np.frombuffer(raw, dtype="u1", count=logical)
     return arr.reshape(h.record_count, h.record_stride)
+
+
+def iter_pages(buf) -> Iterator[int]:
+    """Yield byte offsets of consecutive pages in a buffer/file mapping."""
+    off = 0
+    n = len(buf)
+    while off + HEADER_SIZE <= n:
+        h = read_header(buf, off)
+        yield off
+        off += page_size(h)
+
+
+def seek_cursor(buf, cursor: int) -> Optional[int]:
+    """First page offset containing global record index >= cursor (§7.5)."""
+    for off in iter_pages(buf):
+        h = read_header(buf, off)
+        if h.first_record + h.record_count > cursor:
+            return off
+    return None

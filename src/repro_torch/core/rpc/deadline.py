@@ -1,0 +1,57 @@
+"""Deadline propagation (§7.4): absolute wall-clock timestamps, ns precision.
+
+Every hop checks the same cutoff — no relative-timeout deduction, no rounding
+accumulation.  On the binary transports the deadline is the ``deadline``
+field of the CallHeader.  Copied from the JAX package's
+``core/rpc/deadline.py`` without the HTTP header form (the port carries no
+HTTP transport).
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from ..types import Timestamp
+
+
+class Deadline:
+    __slots__ = ("ts",)
+
+    def __init__(self, ts: Timestamp):
+        self.ts = ts
+
+    # -- constructors -------------------------------------------------------
+    @classmethod
+    def after(cls, seconds: float) -> "Deadline":
+        now_ns = time.time_ns()
+        cut = now_ns + int(seconds * 1e9)
+        return cls(Timestamp(cut // 10**9, cut % 10**9))
+
+    @classmethod
+    def from_timestamp(cls, ts: Timestamp) -> "Deadline":
+        return cls(ts)
+
+    # -- queries -------------------------------------------------------------
+    def cutoff_ns(self) -> int:
+        return self.ts.sec * 10**9 + self.ts.ns
+
+    def remaining(self) -> float:
+        """Seconds until the cutoff (negative if already expired)."""
+        return (self.cutoff_ns() - time.time_ns()) / 1e9
+
+    def expired(self) -> bool:
+        return time.time_ns() >= self.cutoff_ns()
+
+    # -- propagation ---------------------------------------------------------
+    def to_timestamp(self) -> Timestamp:
+        return self.ts
+
+    def __repr__(self):
+        return f"Deadline(+{self.remaining():.3f}s)"
+
+
+def deadline_from_call(header: dict) -> Optional[Deadline]:
+    ts = header.get("deadline")
+    if ts is None:
+        return None
+    return Deadline(ts)

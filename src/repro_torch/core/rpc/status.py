@@ -1,8 +1,7 @@
-"""Status codes (0–16 aligned with gRPC) and the error that carries one.
+"""Status codes: 0–16 aligned with gRPC, 17–255 application-defined (§7.8).
 
-Copied from the JAX package's ``core/rpc/status.py``: the page-level
-``infer`` handler reports a bad request or an expired deadline with the
-same codes the RPC service would put on the wire.
+Copied from the JAX package's ``core/rpc/status.py`` (without the HTTP
+status mapping): both packages put the same codes on the wire.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ class Status:
     UNAVAILABLE = 14
     DATA_LOSS = 15
     UNAUTHENTICATED = 16
+    # 17-255: application-defined
 
     _NAMES = {}
 
@@ -42,3 +42,31 @@ class RpcError(Exception):
         self.code = code
         self.message = message
         self.details = details
+
+
+class TransportError(RpcError):
+    """The connection died under a call: the bytes never (fully) made it.
+
+    Always ``UNAVAILABLE``.  Distinct from a server-sent error frame so
+    the resilient client can tell "the server said no" (not retryable)
+    from "the wire failed" (reconnect, then retry idempotent work /
+    resume streams from the cursor).
+    """
+
+    def __init__(self, message: str = "connection lost",
+                 details: bytes = b""):
+        super().__init__(Status.UNAVAILABLE, message, details)
+
+
+class ClientTimeout(RpcError):
+    """The client gave up waiting for a response frame.
+
+    Always ``DEADLINE_EXCEEDED`` (matching the pre-existing wire-visible
+    behavior), but typed: a local wait timeout means *unknown outcome* —
+    the request may have been dropped in flight or may have executed and
+    had its response lost — so it is only safe to retry under an
+    idempotency key, which is exactly what ``ResilientChannel`` does.
+    """
+
+    def __init__(self, message: str = "client timeout"):
+        super().__init__(Status.DEADLINE_EXCEEDED, message)

@@ -1,18 +1,21 @@
-"""Serving engine + the greedy schedulers, on PyTorch.
+"""Serving engine + the schedulers, on PyTorch.
 
 A port of the JAX package's ``serving/engine.py``: :class:`ServeConfig`
-(field for field); :class:`Engine` (model, params, dense greedy
-generation, scoring and the paged step functions); the dense
-:class:`ContinuousBatcher`, which merges requests of one prompt length
-into one prefill + decode run; and :class:`PagedBatcher`, whose
-scheduling — fused prefill/decode steps under the ``max_step_tokens``
-budget, the prefix cache with copy-on-write, n-gram speculative decode,
-swap preemption with the SLO controller, shedding, the dense fallback for
-requests too large for the pool, and stats — is the JAX batcher's, line
-for line, for greedy requests.
+(field for field); :class:`Engine` (model, params, dense generation —
+greedy or seeded sampling, resumable from a stream cursor — scoring and
+the paged step functions); the dense :class:`ContinuousBatcher`, which
+merges greedy requests of one prompt length into one prefill + decode run
+and runs sampled ones alone; and :class:`PagedBatcher`, whose scheduling —
+fused prefill/decode steps under the ``max_step_tokens`` budget, the
+prefix cache with copy-on-write, n-gram speculative decode (exact-match
+for greedy rows, rejection sampling for sampled ones), ``n > 1``
+candidates forked over shared prompt blocks, swap preemption with the SLO
+controller, shedding, the dense fallback for requests too large for the
+pool, and stats — is the JAX batcher's, line for line.
 
-Not in this slice: sampled requests (temperature > 0) and ``n > 1``
-candidates raise ``NotImplementedError`` at submit, in both batchers.
+Greedy rows of the dense engine take their argmax on the device; sampled
+rows bring their logits to the host, where :mod:`.sampling` filters them
+and walks the CDF, as the reference does.
 """
 from __future__ import annotations
 
@@ -31,13 +34,12 @@ from ..configs.base import ModelConfig
 from ..core.device import torch_device
 from ..models import get_model
 from .kv_cache import CacheOOM, PagedKVCache, block_keys
-from .sampling import GenerationParams, SamplingParams
+from .sampling import (GREEDY, GenerationParams, SamplingParams,
+                       rejection_sample, sample_tokens, spec_uniforms,
+                       target_probs)
 from .spec import ngram_propose
 
 _log = logging.getLogger(__name__)
-
-_N_TODO = ("parallel candidates are not ported yet: they fork sampled rows "
-           "(ROADMAP.md, Queue 1: sampling)")
 
 
 @dataclasses.dataclass
@@ -46,7 +48,8 @@ class ServeConfig:
     cache_len: int = 1024
     max_new_tokens: int = 64
     # default sampling for requests that carry none: temperature 0 =
-    # greedy argmax (the only mode this port serves so far)
+    # greedy argmax; top_k 0 / top_p 1.0 disable the filters; seed feeds
+    # the per-request folded keys (serving/sampling.py)
     temperature: float = 0.0    # 0 = greedy
     top_k: int = 0              # 0 = no top-k filter
     top_p: float = 1.0          # 1.0 = no nucleus (top-p) filter
@@ -87,8 +90,8 @@ class ServeConfig:
 
 
 class Engine:
-    """One model on one device: parameters, dense greedy generation and
-    scoring, and the paged step functions.
+    """One model on one device: parameters, dense generation (greedy or
+    sampled) and scoring, and the paged step functions.
 
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     pass ``device="cpu"`` to run the plain PyTorch path.  ``params``, when
@@ -125,12 +128,23 @@ class Engine:
     def generate(self, tokens: np.ndarray, *,
                  max_new_tokens: Optional[int] = None,
                  stop_token: Optional[int] = None,
-                 deadline=None) -> np.ndarray:
-        """Greedy generation from a [B, T] prompt: one dense prefill into a
-        ``cache_len`` cache, then one decode step per token.  Returns
-        [B, new] int32.
+                 deadline=None, start_from: int = 0, on_token=None,
+                 sampling: Optional[SamplingParams] = None) -> np.ndarray:
+        """Greedy or sampled generation from a [B, T] prompt: one dense
+        prefill into a ``cache_len`` cache, then one decode step per token.
+        Returns [B, new] int32.
+
+        ``start_from``: number of already-delivered tokens to skip (the
+        stream-cursor resume path: generation is deterministic, so the
+        handler regenerates and skips what the client already has);
+        ``on_token(index, tok)`` sees each delivered [B, 1] column as it is
+        produced.  ``sampling`` (default greedy) picks each token with
+        :func:`~repro_torch.serving.sampling.sample_tokens`; row ``r`` of
+        the batch is candidate ``r`` of the key schedule, as in the paged
+        engine's forks.
         """
         sc = self.serve
+        sp = GREEDY if sampling is None else sampling
         maxn = sc.max_new_tokens if max_new_tokens is None else max_new_tokens
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
         b, t = tokens.shape
@@ -140,17 +154,20 @@ class Engine:
         self.stats["prefills"] += 1
         out: List[np.ndarray] = []
         pos = t
-        next_tok = self._pick(logits)
-        for _ in range(maxn):
+        next_tok = self._pick(logits, sp, 0)
+        for i in range(maxn):
             if deadline is not None and deadline.expired():
                 break
-            out.append(next_tok)
+            if i >= start_from:
+                out.append(next_tok)
+                if on_token is not None:
+                    on_token(i, next_tok)
             logits, cache = self.model.decode_step(
                 self.params, torch.from_numpy(next_tok).to(self.device),
                 cache, pos)
             self.stats["decode_steps"] += 1
             pos += 1
-            next_tok = self._pick(logits)
+            next_tok = self._pick(logits, sp, i + 1)
             if stop_token is not None and bool((next_tok == stop_token).all()):
                 break
         self.stats["tokens_out"] += len(out) * b
@@ -158,10 +175,16 @@ class Engine:
             np.zeros((b, 0), np.int32)
 
     @staticmethod
-    def _pick(logits: torch.Tensor) -> np.ndarray:
-        """Next token column [B, 1]: greedy argmax on the device (the first
-        of equal maxima, as ``jnp.argmax``), only [B] ids to the host."""
-        return logits.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
+    def _pick(logits: torch.Tensor, sp: SamplingParams,
+              index: int) -> np.ndarray:
+        """Next token column [B, 1].  Greedy: the argmax on the device (the
+        first of equal maxima, as ``jnp.argmax``), only [B] ids to the
+        host.  Sampled: the logits come to the host for the seeded
+        sampler."""
+        if sp.greedy:
+            return logits.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
+        return sample_tokens(_logits_to_host(logits), sp,
+                             index=index)[:, None]
 
     def _prefill_batch(self, tokens: np.ndarray) -> Dict[str, torch.Tensor]:
         if self.cfg.input_kind != "tokens":
@@ -215,6 +238,7 @@ class _Pending:                    # look these up with `in` / `.remove()`
     stop_token: Optional[int]
     deadline: Optional[Any]
     future: _cf.Future
+    sampling: SamplingParams = GREEDY
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
     cancelled: bool = False     # caller gone (connection died): stop paying
 
@@ -233,13 +257,14 @@ class _Pending:                    # look these up with `in` / `.remove()`
 
 class ContinuousBatcher:
     """Admission queue + batch assembly in front of a single Engine (the
-    dense-cache scheduler, greedy).
+    dense-cache scheduler).
 
     Requests are submitted from handler threads and resolved by one worker
     thread.  Assembly greedily merges queued requests that share a prompt
     length and stop token up to ``max_batch`` rows, waiting at most
     ``window_s`` for stragglers once the first request is in hand, and
-    runs the group as ONE :meth:`Engine.generate`.  Deadlines shed work on
+    runs the group as ONE :meth:`Engine.generate`; sampled requests run
+    alone, so their tokens do not depend on batch composition.  Deadlines shed work on
     submit (full queue or already expired) and again at assembly.  It
     serves model families without paged-KV support (the hybrid model) and
     ``ServeConfig(paged=False)``.
@@ -254,8 +279,6 @@ class ContinuousBatcher:
         self._queue: collections.deque = collections.deque()
         self._cond = threading.Condition()
         self._closed = False  # guarded by _cond
-        # the JAX batcher's key set; sampled_requests stays 0 until
-        # sampling lands
         self.stats = {"requests": 0, "rows": 0, "batches": 0,
                       "batched_rows": 0, "shed": 0, "worker_errors": 0,
                       "cancelled": 0, "sampled_requests": 0}
@@ -269,27 +292,39 @@ class ContinuousBatcher:
                params: Optional[GenerationParams] = None,
                max_new_tokens: Optional[int] = None,
                stop_token: Optional[int] = None,
-               deadline=None, n: int = 1) -> _cf.Future:
+               deadline=None, sampling: Optional[SamplingParams] = None,
+               n: int = 1) -> _cf.Future:
         """Queue a [B, T] (or [T]) prompt; resolves to [B, new] int32.
 
         ``params`` supplies every per-request field at once; the dense
         scheduler has no preemption tier, so its priority and SLO fields
-        are ignored.  A sampled request (temperature > 0) or ``n > 1``
-        raises ``NotImplementedError`` here, in the caller's thread.
+        are ignored.  ``sampling`` (default: the ServeConfig sampling
+        fields) draws each token with the seeded sampler; sampled requests
+        are never merged with others.  ``n > 1`` (single-row prompt only)
+        replicates the prompt across the batch axis: the dense cache pays
+        the prompt's KV n times, and a ``stop_token`` ends the group only
+        when every candidate has emitted it.
         """
         if params is not None:
             params.validate()
             max_new_tokens = params.max_new_tokens
             stop_token = params.stop_token
+            sampling = params.sampling(self.engine.serve)
             n = params.n
-        if int(n) > 1:
-            raise NotImplementedError(f"n={n} {_N_TODO}")
-        # resolving the sampling raises for temperature > 0
-        (params or GenerationParams()).sampling(self.engine.serve)
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
+        sp = _config_sampling(self.engine.serve) if sampling is None \
+            else sampling
+        n = max(1, int(n))
+        if n > 1:
+            if tokens.shape[0] != 1:
+                raise ValueError(
+                    f"n={n} parallel sampling needs a single-row prompt, "
+                    f"got batch {tokens.shape[0]}")
+            tokens = np.repeat(tokens, n, axis=0)
         maxn = self.engine.serve.max_new_tokens if max_new_tokens is None \
             else max_new_tokens  # explicit 0 = prefill-only, not the default
-        p = _Pending(tokens, maxn, stop_token, deadline, _cf.Future())
+        p = _Pending(tokens, maxn, stop_token, deadline, _cf.Future(),
+                     sampling=sp)
         with self._cond:
             if self._closed:
                 self.stats["shed"] += 1
@@ -307,6 +342,8 @@ class ContinuousBatcher:
             self._queue.append(p)
             self.stats["requests"] += 1
             self.stats["rows"] += p.rows
+            if not sp.greedy:
+                self.stats["sampled_requests"] += 1
             self._cond.notify()
         return p.future
 
@@ -363,7 +400,10 @@ class ContinuousBatcher:
                         break  # deque mutated mid-iteration; rescan
                     if p.seq_len == head.seq_len \
                             and p.stop_token == head.stop_token \
+                            and head.sampling.greedy and p.sampling.greedy \
                             and rows + p.rows <= self.max_batch:
+                        # sampled requests run solo: merging would shift
+                        # their row indices (their candidates) in the batch
                         found = p
                         break
                 if found is not None:
@@ -411,7 +451,8 @@ class ContinuousBatcher:
         try:
             out = self.engine.generate(tokens, max_new_tokens=maxn,
                                        stop_token=group[0].stop_token,
-                                       deadline=deadline)
+                                       deadline=deadline,
+                                       sampling=group[0].sampling)
         except Exception as e:  # noqa: BLE001 - fail every member, keep serving
             for p in group:
                 if not p.future.done():
@@ -465,6 +506,16 @@ class _PagedReq:                   # compare [B, T] arrays of mixed shapes
     future: _cf.Future
     rid: int
     on_token: Optional[Callable[[int, np.ndarray], None]] = None
+    sampling: SamplingParams = GREEDY
+    # n>1 parallel sampling: the request prefills as ONE row and _fork()
+    # expands it to fork_n candidate rows sharing the prompt's blocks when
+    # the first generated token is sampled
+    fork_n: int = 1
+    forked: bool = False
+    # per-candidate stop mask of a forked request (None otherwise): a
+    # candidate that samples stop_token freezes to stop-token padding
+    # while its siblings keep generating
+    done: Optional[np.ndarray] = None
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
     # SLO-aware scheduling: priority class (higher preempts strictly
     # lower) and per-request latency targets in seconds (0 = no target)
@@ -486,6 +537,13 @@ class _PagedReq:                   # compare [B, T] arrays of mixed shapes
     @property
     def rows(self) -> int:
         return self.tokens.shape[0]
+
+    @property
+    def slots_needed(self) -> int:
+        """Batch slots the request occupies at its widest: a pending fork
+        prefills as one row but reserves ``fork_n`` slots up front so the
+        expansion never deadlocks on a full batch."""
+        return max(self.rows, self.fork_n)
 
     @property
     def seq_len(self) -> int:
@@ -517,7 +575,7 @@ class _PagedReq:                   # compare [B, T] arrays of mixed shapes
 
 
 class PagedBatcher:
-    """Mixed-length continuous batching over the paged KV cache (greedy).
+    """Mixed-length continuous batching over the paged KV cache.
 
     Every admitted request owns fixed-stride blocks in one shared pool,
     so one :meth:`~repro_torch.models.transformer.DecoderLM.paged_step`
@@ -532,7 +590,11 @@ class PagedBatcher:
     of width ``spec_len + 1`` scores them.  Under pool pressure (``swap``
     on) lower-priority requests are paged out to host and resume
     token-identically later; per-request TTFT/TPOT targets steer the live
-    ``max_step_tokens``.  Every stats key is pre-initialized.
+    ``max_step_tokens``.  A sampled request draws each token through the
+    seeded sampler, and its verify steps accept drafts by rejection
+    sampling; ``submit(n=...)`` forks a prefilled prompt into n candidate
+    rows that share its KV blocks and diverge by copy-on-write.  Every
+    stats key is pre-initialized.
 
     Scheduling invariants (the JAX batcher's): the emitted tokens depend
     only on the prompt and the model; priority preempts strictly lower;
@@ -587,8 +649,7 @@ class PagedBatcher:
         self._step_budget_cap = max(self.max_batch * self.prefill_chunk,
                                     self.max_step_tokens)
         # the JAX batcher's full key set, so snapshots of the two packages
-        # line up; forks, spec_resamples and sampled_requests stay 0 until
-        # sampling lands
+        # line up
         self.stats = {"requests": 0, "rows": 0, "shed": 0, "decode_steps": 0,
                       "batched_rows": 0, "prefill_chunks": 0,
                       "mixed_steps": 0, "admitted_in_flight": 0,
@@ -621,9 +682,15 @@ class PagedBatcher:
         ``on_token(index, tok)`` is invoked from the worker thread as each
         token is emitted.  ``priority`` (higher wins) and the
         ``ttft_slo_ms``/``tpot_slo_ms`` targets drive the SLO-aware tier;
-        ``params`` supplies every per-request field at once.  A sampled
-        request (temperature > 0) or ``n > 1`` raises
-        ``NotImplementedError`` here, in the caller's thread.
+        ``params`` supplies every per-request field at once.  ``sampling``
+        overrides the ServeConfig-default :class:`SamplingParams`.
+
+        ``n > 1`` asks for parallel candidates of a single-row prompt: it
+        is prefilled ONCE, then forked into ``n`` rows that share the
+        prompt's KV blocks and diverge by copy-on-write from the first
+        sampled token; the future resolves to [n, new] int32.  Each
+        candidate stops on its own: a row that samples ``stop_token``
+        freezes to stop-token padding while its siblings continue.
         """
         if params is not None:
             params.validate()
@@ -634,11 +701,14 @@ class PagedBatcher:
             tpot_slo_ms = params.tpot_slo_ms
             sampling = params.sampling(self.engine.serve)
             n = params.n
-        if int(n) > 1:
-            raise NotImplementedError(f"n={n} {_N_TODO}")
-        if sampling is None:   # resolving the defaults checks them
-            _config_sampling(self.engine.serve)
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
+        sp = _config_sampling(self.engine.serve) if sampling is None \
+            else sampling
+        n = max(1, int(n))
+        if n > 1 and tokens.shape[0] != 1:
+            raise ValueError(
+                f"n={n} parallel sampling needs a single-row prompt, "
+                f"got batch {tokens.shape[0]}")
         maxn = self.engine.serve.max_new_tokens if max_new_tokens is None \
             else max_new_tokens  # explicit 0 = prefill-only
         pr = self.default_priority if priority is None else int(priority)
@@ -650,7 +720,8 @@ class PagedBatcher:
             self._next_rid += 1
             p = _PagedReq(tokens, maxn, stop_token, deadline, _cf.Future(),
                           self._next_rid, on_token, priority=pr,
-                          ttft_slo_s=ttft, tpot_slo_s=tpot)
+                          ttft_slo_s=ttft, tpot_slo_s=tpot,
+                          sampling=sp, fork_n=n)
             if p.seq_len == 0:
                 # an installed 0-token request has no prefill to run and no
                 # next_tok to feed: it would poison the SHARED step
@@ -673,6 +744,8 @@ class PagedBatcher:
             self._queue.append(p)
             self.stats["requests"] += 1
             self.stats["rows"] += p.rows
+            if not sp.greedy:
+                self.stats["sampled_requests"] += 1
             self._cond.notify()
         return p.future
 
@@ -742,7 +815,7 @@ class PagedBatcher:
                     p.future.set_exception(
                         ShedError("deadline expired in queue"))
                     continue
-                if p.rows > self.max_batch \
+                if p.slots_needed > self.max_batch \
                         or p.seq_len + max(p.max_new_tokens, 0) \
                         > self.cache.layout.tokens:
                     self._queue.remove(p)
@@ -755,7 +828,7 @@ class PagedBatcher:
                         f"request needs {need} KV blocks, pool capacity "
                         f"is {self.cache.allocator.capacity}"))
                     continue
-                if p.rows <= free_slots and need <= free_budget:
+                if p.slots_needed <= free_slots and need <= free_budget:
                     self._queue.remove(p)
                     return p, None
             return None, None
@@ -764,10 +837,13 @@ class PagedBatcher:
         """Oversized request: the dense engine inline (rare escape hatch)."""
         self.stats["dense_fallbacks"] += 1
         try:
-            out = self.engine.generate(p.tokens,
+            toks = p.tokens if p.fork_n <= 1 \
+                else np.repeat(p.tokens, p.fork_n, axis=0)
+            out = self.engine.generate(toks,
                                        max_new_tokens=p.max_new_tokens,
                                        stop_token=p.stop_token,
-                                       deadline=p.deadline)
+                                       deadline=p.deadline,
+                                       sampling=p.sampling)
         except Exception as e:  # noqa: BLE001 - fail this request only
             if not p.future.done():
                 p.future.set_exception(e)
@@ -776,10 +852,20 @@ class PagedBatcher:
             p.future.set_result(out)
 
     def _blocks_need(self, p: _PagedReq) -> int:
-        """Worst-case device blocks ``p`` needs: every row pays its full
-        prompt + generation footprint."""
-        return self.cache.blocks_needed(
-            p.seq_len + max(p.max_new_tokens, 0)) * p.rows
+        """Worst-case device blocks ``p`` needs over its lifetime.
+
+        Plain requests: every row pays its full prompt + generation
+        footprint.  Fork requests (``fork_n > 1``): one prompt footprint
+        plus, per extra candidate, the private tail past the shared prompt
+        blocks and one block for the copy-on-write of the shared boundary
+        block its first divergent write touches.
+        """
+        per_row = self.cache.blocks_needed(
+            p.seq_len + max(p.max_new_tokens, 0))
+        if p.fork_n > 1:
+            shared = min(-(-p.seq_len // self.cache.block_size), per_row)
+            return per_row + (p.fork_n - 1) * (per_row - shared + 1)
+        return per_row * p.rows
 
     def _admit(self) -> None:
         if self.swap:
@@ -830,7 +916,7 @@ class PagedBatcher:
     def _try_resume(self, req: _PagedReq) -> bool:
         """Swap a preempted request back in if slots and blocks allow;
         all-or-nothing across rows."""
-        if req.rows > self._free_slots():
+        if req.slots_needed > self._free_slots():
             return False
         need = sum(self.cache.swapped_blocks((req.rid, r))
                    for r in range(req.rows))
@@ -853,7 +939,7 @@ class PagedBatcher:
 
     def _take_slots(self, req: _PagedReq) -> None:
         for i in range(self.max_batch):
-            if len(req.slots) == req.rows:
+            if len(req.slots) == req.slots_needed:
                 break
             if self._slots[i] is None:
                 self._slots[i] = (req, len(req.slots))
@@ -879,7 +965,7 @@ class PagedBatcher:
         best: Optional[Tuple[_PagedReq, int]] = None
         with self._cond:
             for p in self._queue:
-                if p.expired() or p.rows > self.max_batch:
+                if p.expired() or p.slots_needed > self.max_batch:
                     continue
                 try:
                     need = self._blocks_need(p)
@@ -987,8 +1073,9 @@ class PagedBatcher:
     def _cow_writes(self, req: _PagedReq, adv: int) -> None:
         """Copy-on-write any SHARED block the coming write range
         ``[pos_next, pos_next + adv)`` touches."""
-        if adv <= 0 or req.tables is None or not self.prefix_enabled:
-            return
+        if adv <= 0 or req.tables is None \
+                or not (self.prefix_enabled or req.forked):
+            return  # forks share blocks even with the prefix cache off
         for r in range(req.rows):
             for idx, src, dst in self.cache.ensure_private_range(
                     (req.rid, r), req.pos_next, adv):
@@ -1031,12 +1118,70 @@ class PagedBatcher:
         self._finish_prefill(req, logits)
 
     def _finish_prefill(self, req: _PagedReq, logits: np.ndarray) -> None:
-        """Prompt fully written: pick the first token (greedy argmax),
-        retire if the request is already done."""
+        """Prompt fully written: fork (n>1), pick the first token, retire
+        if the request is already done.
+
+        ``logits`` holds one row per REAL row (a pending fork's single
+        prefill row); the fork broadcasts it to every candidate, which
+        diverge only through their per-candidate draws.
+        """
         if req.max_new_tokens <= 0 or req.expired():
             self._retire(req)
             return
-        req.next_tok = logits.argmax(-1).astype(np.int32)
+        if req.fork_n > 1 and not req.forked:
+            try:
+                self._fork(req)
+            except CacheOOM as e:
+                self._retire(req, exc=e)
+                return
+            logits = np.broadcast_to(logits, (req.rows,) + logits.shape[1:])
+        req.next_tok = self._next_from(req, logits, 0)
+        if req.done is not None:
+            req.done |= req.next_tok == req.stop_token
+            req.next_tok = np.where(req.done, req.stop_token,
+                                    req.next_tok).astype(np.int32)
+            if bool(req.done.all()):
+                self._retire(req)
+
+    def _fork(self, req: _PagedReq) -> None:
+        """Expand a prefilled single-row request to ``fork_n`` candidate
+        rows that share its prompt blocks (refcounts, not copies).
+
+        Each extra candidate shares every block the prompt occupies —
+        including a partial boundary block, which its first divergent
+        write copy-on-writes private — and allocates its generation tail
+        fresh.  On CacheOOM the rows already forked are released, so the
+        request retires holding only its prefill row.
+        """
+        n = req.fork_n
+        tabs = [req.tables[0]]
+        try:
+            for r in range(1, n):
+                tabs.append(self.cache.fork((req.rid, 0), (req.rid, r),
+                                            shared_tokens=req.seq_len))
+        except CacheOOM:
+            for rr in range(1, len(tabs)):
+                self.cache.release((req.rid, rr))
+            raise
+        req.tables = np.stack(tabs)
+        req.tokens = np.repeat(req.tokens, n, axis=0)
+        if req.hist is not None:
+            req.hist = np.repeat(req.hist, n, axis=0)
+        if req.stop_token is not None:
+            # per-candidate stop: rows finish independently (unlike the
+            # lockstep multi-row prompt path)
+            req.done = np.zeros(n, bool)
+        req.forked = True
+        self.stats["forks"] += n - 1
+
+    def _next_from(self, req: _PagedReq, logits: np.ndarray,
+                   index: int) -> np.ndarray:
+        """The token at output position ``index`` for every row: greedy
+        argmax, or a draw through the folded-key schedule (row r of a
+        forked request IS candidate r)."""
+        if req.sampling.greedy:
+            return logits.argmax(-1).astype(np.int32)
+        return sample_tokens(logits, req.sampling, index=index)
 
     # -- scheduling ---------------------------------------------------------
     def _table_width(self, max_ctx: int) -> int:
@@ -1130,6 +1275,8 @@ class PagedBatcher:
             if slot is None:
                 continue
             req, r = slot
+            if r >= req.rows:
+                continue   # slot reserved for a not-yet-forked candidate
             tables[i] = req.tables[r][:m_used]
             if req.prefilling:
                 adv = advances[req.rid]
@@ -1154,14 +1301,19 @@ class PagedBatcher:
             req.pos_next += advances[req.rid]
             self._register_prefix(req)
             if not req.prefilling:
-                self._finish_prefill(req, logits[req.slots])
+                # prompt fully written: the chunk's last valid logits pick
+                # the first token, and a fork expands to its candidates
+                self._finish_prefill(req, logits[req.slots[:req.rows]])
 
     # -- speculative decode (draft-then-verify) -----------------------------
     def _draft(self, req: _PagedReq) -> Optional[np.ndarray]:
         """Per-row n-gram proposals ([rows, k] int32, lockstep rows clamped
         to their shortest proposal), or None.  The draft budget never
         exceeds the tokens the request may still emit after its pending
-        one, which keeps every speculative write inside its table."""
+        one, which keeps every speculative write inside its table.  Forked
+        candidates diverge row by row, so they decode plainly."""
+        if req.fork_n > 1:
+            return None
         budget = min(self.spec_len, req.max_new_tokens - len(req.out) - 1)
         if budget <= 0:
             return None
@@ -1236,27 +1388,46 @@ class PagedBatcher:
 
     def _advance_spec(self, req: _PagedReq, logits: np.ndarray,
                       draft: Optional[np.ndarray]) -> None:
-        """Commit a verify step's result for one request: exact-match
-        acceptance of the prefix every row accepts, then the same
-        max_new_tokens-then-stop-token checks as :meth:`_advance_decode`,
-        one emitted token at a time."""
+        """Commit a verify step's result for one request, then apply the
+        same max_new_tokens-then-stop-token checks as
+        :meth:`_advance_decode`, one emitted token at a time.
+
+        Greedy requests accept by exact match (the prefix every row
+        accepts).  Sampled requests verify by rejection sampling
+        (:func:`~repro_torch.serving.sampling.rejection_sample`): the
+        n-gram draft is a point mass, so draft j is accepted with
+        probability p_target(draft_j) and a rejected position resamples
+        from the residual; the output distribution is that of plain
+        sampling.
+        """
         lx = logits[req.slots]                                  # [R, C, V]
         k = 0 if draft is None else draft.shape[1]
-        argm = lx.argmax(-1).astype(np.int32)                   # [R, C]
-        n_acc = 0
-        while n_acc < k and bool((argm[:, n_acc] == draft[:, n_acc]).all()):
-            n_acc += 1
+        if req.sampling.greedy:
+            argm = lx.argmax(-1).astype(np.int32)               # [R, C]
+            n_acc = 0   # lockstep rows: accept the prefix EVERY row accepts
+            while n_acc < k \
+                    and bool((argm[:, n_acc] == draft[:, n_acc]).all()):
+                n_acc += 1
+            seq = [argm[:, j] for j in range(n_acc + 1)]
+        else:
+            n_acc, seq = self._rejection_advance(req, lx, draft, k)
         if k:
             self.stats["spec_proposed"] += k * req.rows
             self.stats["spec_accepted"] += n_acc * req.rows
         req.emit(req.next_tok.copy())
         req.pos_next += 1
-        for j in range(n_acc + 1):
-            new = argm[:, j]
+        for j, new in enumerate(seq):
             if len(req.out) >= req.max_new_tokens:
                 self._retire(req)
                 return
-            if req.stop_token is not None \
+            if req.done is not None:
+                req.done |= new == req.stop_token
+                if bool(req.done.all()):
+                    self._retire(req)         # stop token not emitted
+                    return
+                new = np.where(req.done, req.stop_token,
+                               new).astype(np.int32)
+            elif req.stop_token is not None \
                     and bool((new == req.stop_token).all()):
                 self._retire(req)             # stop token not emitted
                 return
@@ -1267,6 +1438,44 @@ class PagedBatcher:
             else:
                 req.next_tok = new.copy()     # first unverified token
                 return
+
+    def _rejection_advance(self, req: _PagedReq, lx: np.ndarray,
+                           draft: Optional[np.ndarray],
+                           k: int) -> Tuple[int, List[np.ndarray]]:
+        """Rejection-sample a verify step's chunk for a sampled request.
+
+        Returns ``(n_acc, seq)``: the ``n_acc`` accepted draft columns plus
+        the token that follows them, shaped like the greedy path's output.
+        Lockstep rows commit the prefix every row accepts; a row that
+        accepted further keeps its own draft token at the cut, and a row
+        that rejected AT the cut takes its residual resample.  With no
+        draft (k = 0) and for the all-accepted bonus token the draw is the
+        one plain decode makes at that output index.
+        """
+        rows = req.rows
+        base = len(req.out) + 1   # output index of the first chunk token
+        if k == 0:
+            return 0, [sample_tokens(lx[:, 0], req.sampling, index=base)]
+        probs = target_probs(lx[:, :k + 1], req.sampling)  # [R, k+1, V]
+        u = spec_uniforms(req.sampling, base_index=base, rows=rows,
+                          width=k + 1)
+        acc = np.zeros(rows, np.int32)
+        tok = np.zeros(rows, np.int32)
+        rej = np.zeros(rows, bool)
+        for r in range(rows):
+            acc[r], tok[r], rej[r] = rejection_sample(
+                probs[r], draft[r], u[r, :, 0], u[r, :, 1])
+        n_acc = int(acc.min())
+        if n_acc >= k:
+            # every draft accepted everywhere: the bonus token is a plain
+            # categorical draw from the position after the draft
+            pend = sample_tokens(lx[:, k], req.sampling, index=base + k)
+        else:
+            pend = np.where(acc > n_acc, draft[:, n_acc], tok) \
+                .astype(np.int32)
+            self.stats["spec_resamples"] += int(np.sum((acc == n_acc) & rej))
+        seq = [draft[:, j] for j in range(n_acc)] + [pend]
+        return n_acc, seq
 
     # -- decode -------------------------------------------------------------
     def _decode_step(self) -> None:
@@ -1298,14 +1507,26 @@ class PagedBatcher:
             self._advance_decode(req, logits)
 
     def _advance_decode(self, req: _PagedReq, logits: np.ndarray) -> None:
-        """Emit the fed token, pick the next one, retire if done."""
+        """Emit the fed token, pick the next one, retire if done.
+
+        Forked requests (``req.done`` set) stop per candidate: a row that
+        picks ``stop_token`` freezes (its later picks are forced to the
+        stop token) and the request retires once EVERY candidate has
+        stopped, before emitting the all-stop column.
+        """
         req.emit(req.next_tok.copy())
         req.pos_next += 1
-        new = logits[req.slots].argmax(-1).astype(np.int32)
+        new = self._next_from(req, logits[req.slots], len(req.out))
         if len(req.out) >= req.max_new_tokens:
             self._retire(req)
             return
-        if req.stop_token is not None \
+        if req.done is not None:
+            req.done |= new == req.stop_token
+            if bool(req.done.all()):
+                self._retire(req)             # stop token not emitted
+                return
+            new = np.where(req.done, req.stop_token, new).astype(np.int32)
+        elif req.stop_token is not None \
                 and bool((new == req.stop_token).all()):
             self._retire(req)                 # stop token not emitted
             return

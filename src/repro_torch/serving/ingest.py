@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,10 +105,11 @@ class PageIngest:
                  out_dtypes: Optional[Dict[str, str]] = None) -> DecodePlan:
         return self.cache.register(s, out_dtypes)
 
-    def admit(self, buf, *, deadline=None) -> IngestResult:
-        """Validate one page, place it on the device, decode every column."""
+    def admit(self, buf, offset: int = 0, *, deadline=None) -> IngestResult:
+        """Validate the page at ``offset``, place it on the device, decode
+        every column."""
         try:
-            header = pages.read_header(buf)
+            header = pages.read_header(buf, offset)
             if deadline is not None and deadline.expired():
                 raise pages.PageError("deadline expired before placement")
             plan = self.cache.lookup(header.schema_hash)
@@ -116,7 +117,7 @@ class PageIngest:
                 raise pages.PageError(
                     f"stride mismatch: page {header.record_stride}, "
                     f"plan {plan.stride}")
-            payload = pages.read_payload(buf)
+            payload = pages.read_payload(buf, offset)
         except pages.PageError:
             self.stats["rejected"] += 1
             raise
@@ -126,6 +127,18 @@ class PageIngest:
         self.stats["payload_bytes"] += header.record_count \
             * header.record_stride
         return IngestResult(header, plan, columns)
+
+    def admit_stream(self, buf, *, cursor: int = 0,
+                     deadline=None) -> Iterator[IngestResult]:
+        """Admit consecutive pages, skipping whole pages below ``cursor``
+        (a global record index: the resume point of a page stream)."""
+        start = pages.seek_cursor(buf, cursor)
+        if start is None:
+            return
+        for off in pages.iter_pages(buf):
+            if off < start:
+                continue
+            yield self.admit(buf, off, deadline=deadline)
 
     def _place(self, payload: np.ndarray) -> torch.Tensor:
         """Raw payload bytes -> an ``[N, stride]`` uint8 tensor on the

@@ -33,6 +33,7 @@ from repro.kernels import rglru_scan as jrg
 from repro.models import get_model as jax_get_model
 from repro.serving import ContinuousBatcher as JaxContinuousBatcher
 from repro.serving import Engine as JaxEngine
+from repro.serving import GenerationParams as JaxGenerationParams
 from repro.serving import PagedBatcher as JaxPagedBatcher
 from repro.serving import ServeConfig as JaxServeConfig
 from repro.serving.service import encode_gen_page as jax_encode_gen_page
@@ -367,10 +368,25 @@ def test_continuous_batcher_matches_jax_tokens_and_stats(engines):
     assert ps == js
     assert ps["batched_rows"] > ps["batches"]    # the three merged
     assert cb.mean_batch_rows() == jb.mean_batch_rows() > 1.0
-    with pytest.raises(NotImplementedError, match="n=2"):
-        cb.submit(reqs[0][0], n=2)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        cb.submit(reqs[0][0], params=GenerationParams(temperature=0.7))
+    # a sampled request and n = 2 candidates (which raised before the port
+    # had a sampler) run alone and give the JAX batcher's tokens
+    sampled = [(reqs[0][0], {"params": GenerationParams(temperature=0.7)}),
+               (reqs[0][0], {"params": GenerationParams(temperature=0.7,
+                                                        seed=5, n=2)})]
+    jb, cb = JaxContinuousBatcher(jengine), ContinuousBatcher(engine)
+    try:
+        want = _run(jb, [(t, {"params": JaxGenerationParams(
+            temperature=0.7, seed=kw["params"].seed, n=kw["params"].n)})
+            for t, kw in sampled])
+        got = _run(cb, sampled)
+        js, ps = jb.collect_stats(), cb.collect_stats()
+    finally:
+        jb.close()
+        cb.close()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[1].shape[0] == 2
+    assert ps == js and ps["sampled_requests"] == 2 and ps["batches"] == 2
 
 
 def test_infer_and_score_page_match_jax(engines):

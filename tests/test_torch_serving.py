@@ -28,6 +28,7 @@ from repro.configs import reduced_config as jax_reduced_config
 from repro.core import pages as jpages
 from repro.core import types as JT
 from repro.serving import Engine as JaxEngine
+from repro.serving import GenerationParams as JaxGenerationParams
 from repro.serving import PageIngest as JaxPageIngest
 from repro.serving import PagedBatcher as JaxPagedBatcher
 from repro.serving import ServeConfig as JaxServeConfig
@@ -36,7 +37,7 @@ from repro.serving.service import prompt_record_struct as jax_prompt_struct
 
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.core import pages
+from repro_torch.core import fastwire, pages
 from repro_torch.core import types as T
 from repro_torch.core.rpc import RpcError, Status
 from repro_torch.serving import (Engine, GenerationParams, InferenceImpl,
@@ -80,7 +81,7 @@ def _all_wire_structs(mod):
 def test_ingest_every_wire_dtype_bit_identical(n):
     rng = np.random.default_rng(n)
     s, js = _all_wire_structs(T), _all_wire_structs(JT)
-    recs = rng.integers(0, 256, (n, T.static_dtype(s).itemsize),
+    recs = rng.integers(0, 256, (n, fastwire.static_dtype(s).itemsize),
                         dtype=np.uint8)
     page = pages.write_page(s.name, recs)
     assert page == jpages.write_page(js.name, recs)
@@ -218,19 +219,28 @@ def test_paged_batcher_preemption_matches_jax(engines, fused):
 
 
 def test_deferred_features_raise_without_killing_the_worker(engines):
-    """Sampling and ``n > 1`` raise at submit; a request past the paged
-    budget (90 + 30 tokens at cache_len 96: its decode writes clamp into
-    the last cache slot, as in JAX) is served by the dense engine, with
-    the JAX batcher's tokens and ``dense_fallbacks``."""
+    """A sampled request (temperature 0.7) and ``n = 3`` candidates, which
+    raised before the port had a sampler, give the JAX batcher's tokens;
+    a request past the paged budget (90 + 30 tokens at cache_len 96: its
+    decode writes clamp into the last cache slot, as in JAX) is served by
+    the dense engine, with the JAX batcher's tokens and
+    ``dense_fallbacks``; the worker survives all of it."""
     jengine, engine = engines
-    pb = PagedBatcher(engine, max_batch=2)
-    jb = JaxPagedBatcher(jengine, max_batch=2)
+    pb = PagedBatcher(engine, max_batch=3)    # room for the n = 3 fork
+    jb = JaxPagedBatcher(jengine, max_batch=3)
     try:
         prompt = np.arange(6, dtype=np.int32)
-        with pytest.raises(NotImplementedError, match="threefry"):
-            pb.submit(prompt, params=GenerationParams(temperature=0.7))
-        with pytest.raises(NotImplementedError, match="n=3"):
-            pb.submit(prompt, n=3)
+        got = pb.submit(prompt, params=GenerationParams(temperature=0.7)
+                        ).result(timeout=120)
+        want = jb.submit(prompt, params=JaxGenerationParams(temperature=0.7)
+                         ).result(timeout=120)
+        np.testing.assert_array_equal(got, want)
+        got = pb.submit(prompt, n=3).result(timeout=120)
+        want = jb.submit(prompt, n=3).result(timeout=120)
+        assert got.shape == (3, SC["max_new_tokens"])
+        np.testing.assert_array_equal(got, want)
+        assert pb.stats["forks"] == jb.stats["forks"] == 2
+        assert pb.stats["sampled_requests"] == jb.stats["sampled_requests"]
         big = np.random.default_rng(2).integers(0, 512, (1, 90)).astype(
             np.int32)
         got = pb.submit(big, max_new_tokens=30).result(timeout=120)
