@@ -152,7 +152,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, src)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    state = {}
+    state = {"src": src}
 
     @Phase("gpu")
     def _gpu():
@@ -886,9 +886,11 @@ def profile(torch, dev, state):
 # logit difference.  Such shifts make splits common (on that card all 6
 # candidates of the two n = 3 requests split from a free-running replay
 # within 2 tokens), so each token is checked on its own prefix (teacher
-# forcing) and the count of splits is held to what the measured
-# distributions predict.
+# forcing).  Those checks found 2 and 3 splits in 24 sampled tokens, each
+# uniform 0.003-0.009 from the kernel token's replay interval (PERF.md);
+# MAX_SAMPLED_SPLITS is twice the larger count.
 SAMPLE_EPS = 0.04
+MAX_SAMPLED_SPLITS = 6                # per 24 sampled tokens
 SAMPLE_GEN = dict(temperature=0.8, top_k=40, seed=1234)     # Generate, n 3
 SAMPLE_SPEC = dict(temperature=0.5, top_k=3, seed=77)       # Infer, spec on
 SAMPLE_TOP_P = dict(temperature=0.8, top_p=0.9, seed=5)     # step timing
@@ -933,14 +935,15 @@ def _release(batcher, gate, order, n, timeout=120.0):
     gate.set()
 
 
-def _wave(impl, call, requests):
-    """Send every request from its own client thread through the gate;
+def _wave(impl, call, requests, gated=True):
+    """Send every request from its own client thread, through the gate
+    unless ``gated`` is false (then the batcher admits them as they come);
     returns (responses, per-request wall seconds, wave wall seconds)."""
     import numpy as np
     from repro_torch.serving import decode_token_page
     keys = {decode_token_page(page).astype(np.int32).tobytes(): i
             for i, (page, _kw) in enumerate(requests)}
-    gate = _gate(impl.batcher)
+    gate = _gate(impl.batcher) if gated else None
 
     def one(req):
         t0 = time.perf_counter()
@@ -949,12 +952,13 @@ def _wave(impl, call, requests):
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(requests)) as ex:
         futs = [ex.submit(one, r) for r in requests]
-        _release(impl.batcher, gate,
-                 lambda t: keys.get(np.asarray(t, np.int32).tobytes(), -1),
-                 len(requests))
+        if gated:
+            _release(impl.batcher, gate, lambda t: keys.get(
+                np.asarray(t, np.int32).tobytes(), -1), len(requests))
         res = [f.result(timeout=600) for f in futs]
     wall = time.perf_counter() - t0
-    del impl.batcher._admit          # the class's again
+    if gated:
+        del impl.batcher._admit          # the class's again
     return [r for r, _ in res], [s for _, s in res], wall
 
 
@@ -972,8 +976,7 @@ def _step_timer(torch, batcher, steps):
 
 def _probs_after(torch, eng, seq, sp):
     """``eng``'s filtered sampling distribution after ``seq`` (float64
-    [V]), from a dense prefill: the replay engine runs the plain
-    versions, the kernel engine the kernels."""
+    [V]), from a dense prefill."""
     from repro_torch.serving import sampling
     toks = torch.tensor([list(seq)], dtype=torch.int32, device=eng.device)
     logits, _ = eng.model.prefill(eng.params, {"tokens": toks}, len(seq))
@@ -990,65 +993,38 @@ def _interval_dist(probs, tok, u):
     return 0.0 if lo <= u < hi else min(abs(u - lo), abs(u - hi))
 
 
-def _draw_mismatch(pa, pb):
-    """The share of uniforms for which the inverse-CDF draws over ``pa``
-    and ``pb`` pick different tokens: the chance that two paths with
-    these distributions split at one sampled index."""
-    import numpy as np
-    ca, cb = np.cumsum(pa), np.cumsum(pb)
-    edges = np.unique(np.concatenate([[0.0], ca, cb, [1.0]]))
-    edges = edges[(edges >= 0) & (edges <= 1)]
-    mid = (edges[:-1] + edges[1:]) / 2
-    ta = np.searchsorted(ca, mid, side="right")
-    tb = np.searchsorted(cb, mid, side="right")
-    return float(np.sum(np.diff(edges)[ta != tb]))
-
-
-def _forced_sampled(torch, ref, kern, prompt, toks, sp, what):
+def _forced_sampled(torch, ref, prompt, toks, sp, what):
     """Every sampled token of ``toks`` ([n, T]: row r is candidate r)
-    against the plain replay on the row's own prefix (teacher forcing, so
-    one split does not end a row's comparison).  At index j the replay
-    draws from its filtered distribution at the schedule's uniform; where
-    it picks another token than the kernel path did, the split is
-    legitimate only if that uniform lies within SAMPLE_EPS of the kernel
-    token's interval in the replay's CDF, or the kernel path's own
-    distribution on the same prefix draws the kernel token there.  The
-    count of such splits may not exceed MAX_SPLITS or twice the count the
-    measured distributions predict, whichever is larger."""
-    import math
-
-    import numpy as np
+    against the plain replay ``ref`` on the row's own prefix (teacher
+    forcing, so one split does not end a row's comparison).  At index j
+    the replay draws from its filtered distribution at the schedule's
+    uniform; where it picks another token, the split is legitimate only
+    if that uniform lies within SAMPLE_EPS of the kernel token's interval
+    in the replay's CDF, and there may be at most MAX_SAMPLED_SPLITS such
+    splits in 24 tokens."""
     from repro_torch.serving import sampling
-    splits, expected, worst_shift, dists = 0, 0.0, 0.0, []
+    dists = []
     for row in range(toks.shape[0]):
         for j in range(toks.shape[1]):
             seq = [int(x) for x in prompt] + [int(x) for x in toks[row, :j]]
             pr = _probs_after(torch, ref, seq, sp)
-            pk = _probs_after(torch, kern, seq, sp)
-            worst_shift = max(worst_shift, float(np.abs(
-                np.cumsum(pr) - np.cumsum(pk)).max()))
-            expected += _draw_mismatch(pr, pk)
             u = float(sampling._uniform_at(sp.seed, j, 1, row)[0, 0])
             k = int(toks[row, j])
             if sampling._inverse_cdf(pr, u) == k:
                 continue
-            dist = _interval_dist(pr, k, u)
-            dists.append(dist)
-            if dist > SAMPLE_EPS and sampling._inverse_cdf(pk, u) != k:
+            dists.append(_interval_dist(pr, k, u))
+            if dists[-1] > SAMPLE_EPS:
                 raise AssertionError(
                     f"{what}: candidate {row} index {j} drew {k}; the "
-                    f"replay's interval of it is {dist} from the uniform "
-                    f"{u} (limit {SAMPLE_EPS}) and the kernel path's own "
-                    f"distribution draws another token")
-            splits += 1
-    limit = max(MAX_SPLITS, math.ceil(2 * expected))
-    if splits > limit:
-        raise AssertionError(f"{what}: {splits} splits, more than {limit} "
-                             f"(the measured distributions predict "
-                             f"{expected:.2f})")
-    return {"tokens_checked": int(toks.size), "splits_within_tolerance":
-            splits, "splits_predicted": expected, "split_limit": limit,
-            "split_interval_distances": dists, "cdf_shift_max": worst_shift}
+                    f"replay's interval of it is {dists[-1]} from the "
+                    f"uniform {u} (limit {SAMPLE_EPS})")
+    limit = MAX_SAMPLED_SPLITS * toks.size / 24
+    if len(dists) > limit:
+        raise AssertionError(f"{what}: {len(dists)} splits in {toks.size} "
+                             f"tokens (limit {limit:g})")
+    return {"tokens_checked": int(toks.size),
+            "splits_within_tolerance": len(dists), "split_limit": limit,
+            "split_interval_distances": dists}
 
 
 def _spec_edges(probs):
@@ -1068,7 +1044,7 @@ def _spec_edges(probs):
     return e0, np.asarray(e1)
 
 
-def _spec_match(torch, ref, kern, prompt, got, want, sp, what):
+def _spec_match(torch, ref, prompt, got, want, sp, what):
     """A sampled request served with spec decode against the plain replay
     with the same ServeConfig (free running: its drafts and accept tests
     are part of the stream): equal, or the first split lies where one of
@@ -1170,7 +1146,7 @@ def rpc_serve(torch, bd, pa, dev, state):
         finally:
             local.close()
 
-    def tcp_wave(kw, steps):
+    def tcp_wave(kw, steps, gated=True):
         """The nine prompts by ``Infer`` over TCP, one connection each, to
         a fresh server (a fresh batcher: no prefix cache carried over)."""
         wimpl = InferenceImpl(engine)
@@ -1191,7 +1167,7 @@ def rpc_serve(torch, bd, pa, dev, state):
         try:
             return _wave(wimpl, rpc_infer,
                          [(p, {"max_new_tokens": RPC_NEW, **kw})
-                          for p in pages])
+                          for p in pages], gated)
         finally:
             for ch in chs:
                 ch.close()
@@ -1222,11 +1198,19 @@ def rpc_serve(torch, bd, pa, dev, state):
                 if bytes(bytearray(o["page"])) != w:
                     raise AssertionError(f"prompt {i}: a {kind} wave's page "
                                          f"differs from InferenceImpl.infer's")
+    # and once over TCP as clients send it: admitted as the requests come
+    # (another batch composition, so its pages are held only to their shape)
+    st = []
+    run = tcp_wave({}, st, gated=False)
+    if any(decode_token_page(bytes(bytearray(o["page"]))).shape
+           != (1, RPC_NEW) for o in run[0]):
+        raise AssertionError("ungated wave: bad pages")
     info["greedy_wave"] = {
         "requests": len(pages), "new_tokens": RPC_NEW,
         "pages_equal_inprocess": True,
         "serve_phase_tokens_per_s": state.get("serve_tokens_per_s"),
-        **{k: summary(runs[k], steps[k]) for k in runs}}
+        **{k: summary(runs[k], steps[k]) for k in runs},
+        "tcp_ungated": summary([run], st)}
 
     # sampled waves over TCP: the same prompts, top-k 40, then top-p 0.9
     for name, kw in (("top_k_40", SAMPLE_GEN), ("top_p_0.9", SAMPLE_TOP_P)):
@@ -1262,7 +1246,7 @@ def rpc_serve(torch, bd, pa, dev, state):
         if gtok.shape != (3, 8) or len({tuple(r) for r in gtok}) < 2:
             raise AssertionError(f"n=3 candidates: {gtok}")
         info["generate_n3"] = {**_forced_sampled(
-            torch, ref, engine, gp, gtok, sp, "Generate n=3"),
+            torch, ref, gp, gtok, sp, "Generate n=3"),
             "sampling": SAMPLE_GEN}
         # the same request as a paged Infer: one prefill forked into three
         # candidates over shared prompt blocks
@@ -1275,7 +1259,7 @@ def rpc_serve(torch, bd, pa, dev, state):
         if forks != 2 or ftok.shape != (3, 8):
             raise AssertionError(f"n=3 Infer: forks {forks}, {ftok.shape}")
         info["infer_n3_fork"] = {"forks": forks, **_forced_sampled(
-            torch, ref, engine, gp, ftok, sp, "Infer n=3 fork")}
+            torch, ref, gp, ftok, sp, "Infer n=3 fork")}
 
         # sampled Infer with spec decode on, against the plain replay with
         # the same ServeConfig (spec decode on too)
@@ -1294,7 +1278,7 @@ def rpc_serve(torch, bd, pa, dev, state):
         spec = {k: after[k] - before[k] for k in
                 ("spec_steps", "spec_proposed", "spec_accepted",
                  "spec_resamples", "sampled_requests")}
-        m = _spec_match(torch, ref, engine, prompts[5], stok, rtok, sp,
+        m = _spec_match(torch, ref, prompts[5], stok, rtok, sp,
                         "spec Infer vs plain replay")
         if spec["spec_steps"] <= 0:
             raise AssertionError(f"sampled Infer ran no verify step: {spec}")
@@ -1379,7 +1363,7 @@ def rpc_serve(torch, bd, pa, dev, state):
                              f"{launches}")
     info["launches"] = launches
     info["preempt_swap"] = _rpc_preempt(torch, dev, engine, ref)
-    info["launcher_once"] = _launcher_once()
+    info["launcher_once"] = _launcher_once(state["src"])
     return info
 
 
@@ -1438,14 +1422,10 @@ def _rpc_preempt(torch, dev, engine, ref):
                                       got, want, "preempted vs plain")}
 
 
-def _launcher_once():
+def _launcher_once(src):
     """``python -m repro_torch.launch.serve --arch qwen2-1.5b --full
-    --once`` as a subprocess: it must exit 0 after its probe line."""
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    for p in sys.path:
-        if os.path.isdir(os.path.join(p, "repro_torch")):
-            src = p
-            break
+    --once`` as a subprocess, with ``src`` on its path: it must exit 0
+    after its probe line."""
     env = dict(os.environ, PYTHONPATH=src)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
