@@ -16,6 +16,13 @@ serving paths at full width, with weights drawn from a seeded
   port's Bebop RPC server over TCP (``rpc_serve``: the nine methods,
   seeded sampling with n = 3 forks and rejection-sampled spec decode,
   preemption and swap at a 1,100-key context, the launcher's ``--once``);
+  gemma-2b (18 layers, d_model 2048, 8 query heads over one KV head of
+  256, vocab 256,000, bf16) on the same path (``gemma_serve``); and the
+  replicated tier (``fleet_serve``: the replica router over two
+  in-process replicas of qwen2-1.5b on TCP, with a replica killed under
+  a stream and under an ``Infer``, and hedging over a slow link; then the
+  launcher with ``--replicas 2`` as subprocesses, one replica SIGKILLed
+  and restarted by its supervisor);
 * the dense path: the same model with ``ServeConfig(paged=False)``
   (``ContinuousBatcher`` -> ``Engine.generate``: flash attention kernel
   in the prefill), the paged batcher's dense fallback and ``score_page``;
@@ -60,6 +67,8 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SEED = 0
 # main-path shapes: qwen2-1.5b at full width under the default ServeConfig
 HQ, HKV, HD, BS = 12, 2, 128, 16
+# gemma-2b's attention heads: 8 query heads over one KV head, head_dim 256
+GEMMA_HEADS = (8, 1, 256)
 PROMPT_LENS = (16, 40, 64, 97, 128, 200, 256, 331, 400)
 NEW_TOKENS = 32
 HYBRID_PROMPTS = (0, 3, 5, 7, 8)    # PROMPT_LENS 16, 97, 200, 331, 400
@@ -224,6 +233,8 @@ def main(argv=None) -> int:
     Phase("serve")(lambda: serve(torch, bd, pa, dev, state))
     Phase("profile")(lambda: profile(torch, dev, state))
     Phase("rpc_serve")(lambda: rpc_serve(torch, bd, pa, dev, state))
+    Phase("gemma_serve")(lambda: gemma_serve(torch, bd, pa, dev, state))
+    Phase("fleet_serve")(lambda: fleet_serve(torch, bd, pa, dev, state))
     Phase("dense_serve")(lambda: dense_serve(torch, fa, dev, state))
     Phase("hybrid_serve")(lambda: hybrid_serve(torch, bd, fa, rg, dev,
                                                  state))
@@ -309,8 +320,8 @@ def check_decode(torch, bd, dev):
             "pages": [list(p) for p in DECODE_PAGES]}
 
 
-def _pool(torch, gen, dev, n_blocks, dtype):
-    shape = (n_blocks, HKV, BS, HD)
+def _pool(torch, gen, dev, n_blocks, dtype, heads=(HQ, HKV, HD)):
+    shape = (n_blocks, heads[1], BS, heads[2])
     return (torch.randn(shape, generator=gen, device=dev).to(dtype),
             torch.randn(shape, generator=gen, device=dev).to(dtype))
 
@@ -336,10 +347,12 @@ ATTN_TABLES = ((64, 513, (0, 1, 17, 100, 255, 400, 777, 1024),
                 (0, 1000, 1500, 1990, 2016, 1024, 1063, 1900)))
 
 
-def _attn_inputs(torch, gen, dev, b, t, m, n_blocks, dtype):
-    kp, vp = _pool(torch, gen, dev, n_blocks, dtype)
+def _attn_inputs(torch, gen, dev, b, t, m, n_blocks, dtype,
+                 heads=(HQ, HKV, HD)):
+    kp, vp = _pool(torch, gen, dev, n_blocks, dtype, heads)
     tables = _tables(torch, gen, dev, b, m, n_blocks)
-    q = torch.randn((b, HQ, t, HD), generator=gen, device=dev).to(dtype)
+    q = torch.randn((b, heads[0], t, heads[2]), generator=gen,
+                    device=dev).to(dtype)
     return q, kp, vp, tables
 
 
@@ -418,10 +431,66 @@ def check_attention(torch, pa, dev):
             raise AssertionError(
                 f"paged bf16 T {t}: {share:.4%} of outputs differ from the "
                 f"plain version's (limit {MAX_BF16_MISMATCH:.0%})")
+    out.update(_check_attention_heads(torch, pa, dev, gen, GEMMA_HEADS,
+                                      "gemma"))
     torch.cuda.synchronize()
     out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
     out["tolerance_f32"] = {"atol": F32_ATOL, "rtol": F32_RTOL}
     out["max_bf16_mismatch"] = MAX_BF16_MISMATCH
+    return out
+
+
+def _check_attention_heads(torch, pa, dev, gen, heads, name):
+    """Both paged kernels in bf16 at another model's ``heads`` (Hq, Hkv,
+    D), held to the bf16 limits above: decode, T 5 and T 32 over
+    ATTN_TABLES, then the share of outputs that differ from the plain
+    version's at the timing contexts."""
+    b, (hq, _, hd) = 8, heads
+    out = {}
+    for m, n_blocks, ctx, starts in ATTN_TABLES:
+        tag = f"{name}_bf16_keys{m * BS}"
+        q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, 1, m, n_blocks,
+                                         torch.bfloat16, heads)
+        ctx = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        got = pa.paged_attention(q[:, :, 0], kp, vp, tables, ctx)
+        want = pa.paged_attention_plain(q[:, :, 0], kp, vp, tables, ctx)
+        ok, err = _close(torch, got, want, ATTN_ATOL, ATTN_RTOL)
+        if not ok or bool(got[0].any()):
+            raise AssertionError(f"decode {tag}: max err {err}, ctx==0 row "
+                                 f"zero: {not bool(got[0].any())}")
+        out[f"decode_{tag}_max_abs_err"] = err
+        for t in (32, 5):
+            qpos = (torch.tensor(starts, device=dev)[:, None]
+                    + torch.arange(t, device=dev)[None]).clamp(
+                        max=m * BS - 1)
+            qpos[1] = 19                      # a padded decode row
+            qpos[7] = 0                       # decode at position 0
+            qpos = qpos.to(torch.int32)
+            q = torch.randn((b, hq, t, hd), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            got = pa.paged_prefill_attention(q, kp, vp, tables, qpos)
+            want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
+            ok, err = _close(torch, got, want, ATTN_ATOL, ATTN_RTOL)
+            if not ok:
+                raise AssertionError(f"prefill T={t} {tag}: max err {err}")
+            out[f"prefill_t{t}_{tag}_max_abs_err"] = err
+    m = _table_width(ATTN_CTX)
+    for t in (1, 5, 32):
+        q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, t, m, 513,
+                                         torch.bfloat16, heads)
+        qpos = torch.tensor([[c - t + i for i in range(t)] for c in ATTN_CTX],
+                            dtype=torch.int32, device=dev)
+        got = pa.paged_prefill_attention(q, kp, vp, tables, qpos) if t > 1 \
+            else pa.paged_attention(q[:, :, 0], kp, vp, tables,
+                                    qpos[:, 0] + 1)[:, :, None]
+        want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
+        share = float((got != want).float().mean())
+        out[f"{name}_bf16_mismatch_share@T{t}"] = share
+        if share > MAX_BF16_MISMATCH:
+            raise AssertionError(
+                f"paged bf16 {name} T {t}: {share:.4%} of outputs differ "
+                f"from the plain version's (limit {MAX_BF16_MISMATCH:.0%})")
+    out[f"{name}_heads"] = {"hq": heads[0], "hkv": heads[1], "d": heads[2]}
     return out
 
 
@@ -444,10 +513,12 @@ FLASH_CASES = ((1, 1, True, None, 0), (7, 7, True, None, 0),
 #: (Hq, Hkv, D): qwen2-1.5b and recurrentgemma-9b
 FLASH_HEADS = ((12, 2, 128), (16, 1, 256))
 #: the full-width prefills the main paths give the flash kernel, B 1,
-#: causal: qwen2-1.5b's longest served prompt, recurrentgemma-9b's long one
+#: causal: qwen2-1.5b's longest served prompt, recurrentgemma-9b's long one,
+#: and gemma-2b's heads at T 400 (its dense fallback's shape)
 #: (name: Hq, Hkv, D, T, window)
 FLASH_FULL = {"qwen2": (HQ, HKV, HD, max(PROMPT_LENS), None),
-              "recurrentgemma": (16, 1, 256, LONG_PROMPT, 2048)}
+              "recurrentgemma": (16, 1, 256, LONG_PROMPT, 2048),
+              "gemma": (*GEMMA_HEADS, max(PROMPT_LENS), None)}
 #: the share of bf16 outputs at FLASH_FULL that may differ from the plain
 #: version's.  Both sum in f32 and round once to bf16, so they differ only
 #: where the two f32 sums straddle a rounding boundary: with the kernel's
@@ -643,9 +714,25 @@ def check_model(torch, dev, state):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     params = engine.params
-    kern = engine.model
     plain = DecoderLM(dataclasses.replace(cfg, attention_impl="reference"))
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    info = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "init_s": init_s,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params)),
+            "logit_tol": LOGIT_TOL, "split_margin": SPLIT_MARGIN,
+            "max_splits": MAX_SPLITS}
+    info.update(_hold_step_logits(torch, _step_logits(
+        torch, cfg, params, {"kernel": engine.model, "plain": plain}, dev,
+        SEED + 2), LOGIT_TOL))
+    state.update(engine=engine, plain_model=plain)
+    return info
+
+
+def _step_logits(torch, cfg, params, models, dev, seed):
+    """Logits of a mixed step and of the decode step after it, for each of
+    ``models`` (name: model) on ``params``, from one seeded draw of
+    tokens."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     b, c, m = 8, 32, 4
     tables = (torch.arange(b * m, device=dev, dtype=torch.int32)
               .reshape(b, m) + 1)
@@ -660,30 +747,33 @@ def check_model(torch, dev, state):
     dec_toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
                              device=dev, dtype=torch.int32)
     dec_pos = adv[:, None].to(torch.int32)
-    results = {}
-    for name, model in (("kernel", kern), ("plain", plain)):
+    out = {}
+    for name, model in models.items():
         pool = model.init_paged_pool(b * m + 1, BS, dev)
         mixed, pool = model.paged_step(params, toks, pool, tables, pos, last)
         dec, pool = model.paged_step(params, dec_toks, pool, tables, dec_pos,
                                      torch.zeros(b, dtype=torch.int32,
                                                  device=dev))
-        results[name] = (mixed.float(), dec.float())
-    info = {"layers": cfg.num_layers, "d_model": cfg.d_model,
-            "dtype": cfg.dtype, "init_s": init_s,
-            "param_bytes": sum(t.numel() * t.element_size()
-                               for t in _leaves(params)),
-            "logit_tol": LOGIT_TOL, "split_margin": SPLIT_MARGIN,
-            "max_splits": MAX_SPLITS}
-    splits = 0
+        out[name] = (mixed.float(), dec.float())
+    return out
+
+
+def _hold_step_logits(torch, logits, tol):
+    """The kernel path's step logits against the plain path's: finite,
+    within ``tol``, and an argmax split only where the plain top-2 margin
+    is within SPLIT_MARGIN, at most MAX_SPLITS times."""
+    info, splits = {}, 0
     for i, step in enumerate(("mixed", "decode")):
-        a, r = results["kernel"][i], results["plain"][i]
+        a, r = logits["kernel"][i], logits["plain"][i]
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{step} step: non-finite logits")
         err = float((a - r).abs().max())
         info[f"{step}_max_abs_logit_diff"] = err
-        if err > LOGIT_TOL:
-            raise AssertionError(f"{step} step logits differ by {err}")
-        for row in range(b):
+        info[f"{step}_max_abs_logit"] = float(r.abs().max())
+        if err > tol:
+            raise AssertionError(f"{step} step logits differ by {err} "
+                                 f"(limit {tol})")
+        for row in range(a.shape[0]):
             if int(a[row].argmax()) != int(r[row].argmax()):
                 margin = _margin(r[row])
                 if margin > SPLIT_MARGIN:
@@ -694,7 +784,6 @@ def check_model(torch, dev, state):
     if splits > MAX_SPLITS:
         raise AssertionError(f"{splits} argmax splits (limit {MAX_SPLITS})")
     info["argmax_splits_within_tolerance"] = splits
-    state.update(engine=engine, plain_model=plain)
     return info
 
 
@@ -1442,6 +1531,551 @@ def _launcher_once(src):
             "serving_line": out.stdout.splitlines()[0]}
 
 
+# -- gemma-2b on the paged path ------------------------------------------------
+
+# gemma-2b's step logits, paged kernels against their plain versions.  Its
+# logits have another scale than qwen2's (the embedding scaled by sqrt(2048)
+# on the way in, the tied unembed over a 256,000-token vocabulary), so the
+# limit is its own: the largest difference measured on an H100 was
+# GEMMA_LOGIT_MEASURED, on logits of up to 11 in magnitude (PERF.md), and
+# the limit is about twice that.
+GEMMA_LOGIT_MEASURED = 0.082
+GEMMA_LOGIT_TOL = 0.16
+
+
+def gemma_serve(torch, bd, pa, dev, state):
+    """gemma-2b at full width (18 layers, d_model 2048, 8 query heads over
+    one KV head of 256, GeGLU, the tied embedding scaled by sqrt(d), vocab
+    256,000, bf16) on the paged path: its step logits against the plain
+    attention's, then the serve phase's nine prompt pages x 32 new tokens
+    and the one-token follow-up through ``InferenceImpl.infer`` under the
+    default ServeConfig (mixed steps, spec verify, the prefix cache, copy
+    on write), tokens against a replay through the plain versions."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
+                                     encode_prompt_page)
+    cfg = get_config("gemma-2b")
+    t0 = time.perf_counter()
+    engine = Engine(cfg, ServeConfig(), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    info = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "init_s": init_s,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(engine.params)),
+            "logit_tol": GEMMA_LOGIT_TOL,
+            "logit_tol_from_measured": GEMMA_LOGIT_MEASURED}
+    info.update(_hold_step_logits(torch, _step_logits(
+        torch, cfg, engine.params, {"kernel": engine.model,
+                                    "plain": DecoderLM(plain_cfg)}, dev,
+        SEED + 12), GEMMA_LOGIT_TOL))
+
+    widths = []
+    for name in ("paged_step", "paged_step_verify"):
+        fn = getattr(engine.model, name)
+
+        def run(params, tokens, *args, _fn=fn):
+            t0 = time.perf_counter()
+            out = _fn(params, tokens, *args)
+            torch.cuda.synchronize()   # the batcher syncs here anyway
+            widths.append((int(tokens.shape[1]), time.perf_counter() - t0))
+            return out
+        setattr(engine.model, name, run)
+    prompts = _prompts(cfg.vocab_size)
+    wave = [(encode_prompt_page(p[None]), NEW_TOKENS) for p in prompts]
+    follow = [(encode_prompt_page(prompts[0][None]), 1)]
+    impl = InferenceImpl(engine)
+    counters = (bd.decode_columns, pa.paged_attention,
+                pa.paged_prefill_attention)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = _drive(impl, wave) + _drive(impl, follow)
+    wall = time.perf_counter() - t0
+    launches = {f"{fn.__module__.split('.')[-1]}.{fn.__name__}": fn.launches
+                for fn in counters}
+    stats = impl.batcher.collect_stats()
+    impl.close()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels not launched on gemma's paged path: "
+                             f"{launches}")
+    if stats["prefix_hits"] <= 0 or stats["cow_copies"] <= 0 \
+            or stats["spec_steps"] <= 0 or stats["mixed_steps"] <= 0:
+        raise AssertionError(f"gemma serve missed a scheduler path: {stats}")
+    toks = _tokens(out)
+    for t, (_, n) in zip(toks, wave + follow):
+        if t.shape != (1, n) or int(t.max()) >= cfg.vocab_size:
+            raise AssertionError(f"bad response {t.shape} for {n} tokens")
+    ref = Engine(plain_cfg, ServeConfig(), params=engine.params, device=dev)
+    ref_impl = InferenceImpl(ref)
+    ref_toks = _tokens(_drive(ref_impl, wave) + _drive(ref_impl, follow))
+    ref_impl.close()
+    vs_plain = _match(torch, ref, [p[None] for p in prompts + prompts[:1]],
+                      toks, ref_toks, "gemma vs plain replay")
+    by_width = {}
+    for w, sec in widths:
+        by_width.setdefault(w, []).append(sec * 1e3)
+    n_tokens = sum(t.size for t in toks)
+    state["gemma_launches"] = launches
+    del engine, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**info, "requests": len(out), "tokens_out": n_tokens,
+            "wall_s": wall, "tokens_per_s": n_tokens / wall,
+            "launches": launches, "steps": len(widths),
+            "step_ms_by_width": {
+                str(w): {"steps": len(v), "mean_ms": sum(v) / len(v),
+                         "max_ms": max(v)}
+                for w, v in sorted(by_width.items())},
+            "stats": {k: stats[k] for k in (
+                "requests", "prefix_hits", "cow_copies", "spec_steps",
+                "spec_accepted", "mixed_steps", "decode_steps")},
+            "tokens_vs_plain": vs_plain}
+
+
+# -- the replicated tier -------------------------------------------------------
+
+#: one-way link latency of the slow replica in the hedging run (seconds):
+#: longer than the hedge delay, so a hedge fires and the fast replica wins
+HEDGE_LATENCY_S = 0.25
+HEDGE_DELAY_MS = 50.0
+FLEET_NEW = 16                       # new tokens of a fleet request
+FLEET_STREAM_NEW = 32                # of the killed stream
+
+
+def _tcp_wave(host, port, pages, new_tokens):
+    """Every page by ``Infer`` over TCP at once, one connection each;
+    returns (token arrays, per-request seconds, wave seconds)."""
+    from repro_torch.core.rpc import Channel, TcpTransport
+    from repro_torch.serving import decode_token_page, service
+
+    def one(page):
+        ch = Channel(TcpTransport.connect(host, port))
+        try:
+            t0 = time.perf_counter()
+            res = ch.typed(service.InferenceService).Infer(
+                {"page": page, "max_new_tokens": new_tokens}, timeout=600)
+            sec = time.perf_counter() - t0
+        finally:
+            ch.close()
+        return decode_token_page(bytes(bytearray(res["page"]))).astype(
+            "int64"), sec
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(len(pages)) as ex:
+        res = list(ex.map(one, pages))
+    return [r for r, _ in res], [s for _, s in res], time.perf_counter() - t0
+
+
+def _latency(secs):
+    import numpy as np
+    ms = np.asarray(secs) * 1e3
+    return {"request_ms_p50": float(np.percentile(ms, 50)),
+            "request_ms_p95": float(np.percentile(ms, 95))}
+
+
+def _stream_tokens(ch, sid, raw, on_chunk=None):
+    """An InferStream's chunks joined into one [1, n] token array."""
+    import numpy as np
+    from repro_torch.core import wire
+    from repro_torch.serving import decode_token_page, service
+    chunks = []
+    for item in ch.call(sid, raw, server_stream=True, timeout=600):
+        chunk = wire.decode(service.InferChunk, item.payload)
+        chunks.append(decode_token_page(bytes(bytearray(chunk["page"]))))
+        if on_chunk is not None:
+            on_chunk(len(chunks))
+    return np.concatenate(chunks, axis=1).astype(np.int64)
+
+
+def _router_host_us(page, calls=300):
+    """The router's own host time for one ``Infer``: the mean round trip
+    through ``build_router_server`` to a replica that echoes the request
+    page, less the mean round trip to that replica directly, both over
+    in-memory transports (the proxy's decode of the affinity prefix, its
+    pick, its keyed call and the extra hop's frames)."""
+    from repro_torch.core import wire
+    from repro_torch.core.rpc import Channel, Router, Server, connected_pair
+    from repro_torch.serving import RouterConfig, build_router_server, service
+    svc = service.InferenceService
+    rt = Router()
+    for name, fn in (("Infer", lambda req, ctx: {
+            "page": req["page"], "batch": 1, "new_tokens": 0}),
+            ("Health", lambda req, ctx: {"serving": True, "epoch": 1})):
+        m = svc.method(name)
+        rt.register_handler(m.id, fn, name=m.name, kind=m.kind,
+                            request_type=m.request, response_type=m.response,
+                            service=svc.name)
+    echo = Server(rt)
+
+    def dial(server):
+        ct, st = connected_pair()
+        server.serve_transport(st, blocking=False)
+        return ct
+
+    rserver, router = build_router_server(
+        [lambda: dial(echo)], RouterConfig(health_interval_s=0, hedge=False))
+    raw = wire.encode(service.InferRequest, {"page": page, "max_new_tokens": 16})
+    mid = svc.method("Infer").id
+    out = {}
+    for name, server in (("direct", echo), ("router", rserver)):
+        ch = Channel(dial(server))
+        for _ in range(20):
+            ch.call(mid, raw)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ch.call(mid, raw)
+        out[f"{name}_us"] = (time.perf_counter() - t0) / calls * 1e6
+        ch.close()
+    router.close()
+    out["router_host_us_per_infer"] = out["router_us"] - out["direct_us"]
+    return out
+
+
+def fleet_serve(torch, bd, pa, dev, state):
+    """The replicated tier on the card.  In process: ``build_router_server``
+    over two ``InProcessReplica``s of the full-width qwen2-1.5b (one
+    engine, two batchers launching on one card) on TCP: the nine pages
+    against one replica's; an ``InferStream`` whose replica is killed
+    after 2 chunks against the same stream uninterrupted (the router
+    resumes it on the survivor from its watermark, so the two must agree:
+    generation on the card must not depend on which process runs it); a
+    keyed ``Infer`` across a replica kill, answered once; hedging with one
+    slow link; the router's host time.  Then the launcher with
+    ``--replicas 2`` as subprocesses (``_fleet_launcher``)."""
+    import threading
+
+    import numpy as np
+    from repro_torch.core import wire
+    from repro_torch.core.rpc import Channel, TcpTransport
+    from repro_torch.serving import (Engine, InferenceImpl, InProcessReplica,
+                                     RouterConfig, ServeConfig,
+                                     build_router_server, build_server,
+                                     decode_token_page, encode_prompt_page,
+                                     service)
+    engine = state["engine"]
+    cfg = engine.cfg
+    ref = Engine(dataclasses.replace(cfg, attention_impl="reference"),
+                 ServeConfig(), params=engine.params, device=dev)
+    prompts = _prompts(cfg.vocab_size)
+    pages = [encode_prompt_page(p[None]) for p in prompts]
+    svc = service.InferenceService
+    counters = (bd.decode_columns, pa.paged_attention,
+                pa.paged_prefill_attention)
+    info = {}
+
+    # one replica, called directly: the pages and latencies to compare with
+    single = InferenceImpl(engine)
+    sserver = build_server(engine, impl=single)
+    host, port, _ = sserver.listen_tcp()
+    try:
+        want, direct_s, direct_wall = _tcp_wave(host, port, pages, FLEET_NEW)
+    finally:
+        sserver.drain(timeout=30)
+        single.close()
+
+    for fn in counters:
+        fn.launches = 0
+    reps = [InProcessReplica(engine, f"rep{i}") for i in range(2)]
+    rserver, router = build_router_server(
+        reps, RouterConfig(health_interval_s=0, hedge=False))
+    rhost, rport, _ = rserver.listen_tcp()
+    ch = Channel(TcpTransport.connect(rhost, rport))
+    try:
+        got, routed_s, routed_wall = _tcp_wave(rhost, rport, pages,
+                                               FLEET_NEW)
+        served = [r.impl.batcher.collect_stats()["requests"] for r in reps]
+        info["pages"] = {
+            "requests": len(pages), "new_tokens": FLEET_NEW,
+            "requests_per_replica": served,
+            "vs_one_replica": _match(torch, ref, [p[None] for p in prompts],
+                                     got, want, "router vs one replica"),
+            "router": {**_latency(routed_s),
+                       "tokens_per_s": len(pages) * FLEET_NEW / routed_wall},
+            "direct": {**_latency(direct_s),
+                       "tokens_per_s": len(pages) * FLEET_NEW / direct_wall}}
+
+        # an InferStream killed after 2 chunks against the same stream
+        # uninterrupted, token by token
+        sid = svc.method("InferStream").id
+        raw = wire.encode(service.InferRequest, {
+            "page": pages[8], "max_new_tokens": FLEET_STREAM_NEW})
+        whole = _stream_tokens(ch, sid, raw)
+        killed = []
+
+        def kill_at_two(n):
+            if n == 2 and not killed:
+                for rep, robj in zip(reps, router.replicas):
+                    if robj.inflight:
+                        rep.kill()
+                        killed.append(rep.name)
+        cut = _stream_tokens(ch, sid, raw, kill_at_two)
+        if not killed or router.stats["stream_failovers"] < 1:
+            raise AssertionError(f"no stream failover: killed {killed}, "
+                                 f"{router.stats}")
+        info["stream_kill"] = {
+            "killed": killed[0], "tokens": int(whole.size),
+            "equal": bool(np.array_equal(cut, whole)),
+            "stream_failovers": router.stats["stream_failovers"],
+            **_match(torch, ref, [prompts[8][None]], [cut], [whole],
+                     "killed stream vs uninterrupted")}
+        next(r for r in reps if r.name == killed[0]).restart()
+        router.poll()
+
+        # a keyed Infer whose replica dies under it: the router resubmits
+        # it to the survivor, and the client gets one answer
+        iid = svc.method("Infer").id
+        raw = wire.encode(service.InferRequest, {"page": pages[2],
+                                             "max_new_tokens": FLEET_NEW})
+        victim_r = next(router._ring_order(router._affinity_key(raw)))
+        victim = reps[router.replicas.index(victim_r)]
+        survivor = next(r for r in reps if r is not victim)
+        before = survivor.impl.batcher.collect_stats()["requests"]
+        failovers = router.stats["failovers"]
+        answers = queue.Queue()
+        threading.Thread(target=lambda: answers.put(ch.call(
+            iid, raw, timeout=600)), daemon=True).start()
+        end = time.monotonic() + 120
+        while not victim_r.inflight and time.monotonic() < end:
+            time.sleep(0.001)
+        if not victim_r.inflight:
+            raise AssertionError("the victim never received the Infer")
+        victim.kill()
+        out = wire.decode(service.InferResponse, bytes(answers.get(timeout=600)))
+        tok = decode_token_page(bytes(bytearray(out["page"]))).astype(
+            np.int64)
+        executed = survivor.impl.batcher.collect_stats()["requests"] - before
+        if router.stats["failovers"] <= failovers or executed != 1 \
+                or not answers.empty():
+            raise AssertionError(f"failover: {router.stats}, survivor ran "
+                                 f"it {executed} times")
+        info["infer_failover"] = {
+            "victim": victim.name, "survivor_executions": executed,
+            "failovers": router.stats["failovers"] - failovers,
+            **_match(torch, ref, [prompts[2][None]], [tok], [want[2]],
+                     "failed-over Infer vs one replica")}
+        launches = {f"{fn.__module__.split('.')[-1]}.{fn.__name__}":
+                    fn.launches for fn in counters}
+    finally:
+        ch.close()
+        rserver.drain(timeout=30)
+        router.close()
+        for r in reps:
+            r.kill()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels not launched through the router: "
+                             f"{launches}")
+    info["launches"] = launches
+
+    # hedging: the first replica's link is slow; its Infers are hedged to
+    # the second, which answers first
+    slow = InProcessReplica(engine, "slow", latency=HEDGE_LATENCY_S)
+    fast = InProcessReplica(engine, "fast")
+    hserver, hrouter = build_router_server(
+        [slow, fast], RouterConfig(health_interval_s=0, hedge=True,
+                                   hedge_delay_ms=HEDGE_DELAY_MS,
+                                   affinity_prefix=0))
+    hhost, hport, _ = hserver.listen_tcp()
+    try:
+        hedged = []
+        hch = Channel(TcpTransport.connect(hhost, hport))
+        for i in (0, 3, 6):
+            res = hch.typed(svc).Infer({"page": pages[i],
+                                        "max_new_tokens": FLEET_NEW},
+                                       timeout=600)
+            hedged.append(decode_token_page(bytes(bytearray(
+                res["page"]))).astype(np.int64))
+        hch.close()
+        hs = {k: hrouter.stats[k] for k in ("hedges_fired", "hedges_won",
+                                            "hedges_cancelled")}
+    finally:
+        hserver.drain(timeout=30)
+        hrouter.close()
+        slow.kill()
+        fast.kill()
+    if hs["hedges_fired"] < 1 or hs["hedges_won"] < 1:
+        raise AssertionError(f"no hedge fired and won: {hs}")
+    info["hedging"] = {
+        "slow_link_s": HEDGE_LATENCY_S, "hedge_delay_ms": HEDGE_DELAY_MS,
+        **hs, "vs_one_replica": _match(
+            torch, ref, [prompts[i][None] for i in (0, 3, 6)], hedged,
+            [want[i] for i in (0, 3, 6)], "hedged vs one replica")}
+    info["router_host"] = _router_host_us(pages[8])
+    info["launcher"] = _fleet_launcher(state["src"])
+    info["launches_note"] = (
+        "launches counted in this process: the in-process router over two "
+        "InProcessReplicas; the launcher's replicas are child processes, "
+        "whose counters this process cannot read")
+    return info
+
+
+def _children(pid):
+    """Process ids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(d))
+    return sorted(out)
+
+
+def _nvidia_fds(pid):
+    """The NVIDIA device files process ``pid`` holds open: CUDA opens
+    them when the process initialises it.  (Mapping ``libcuda.so`` proves
+    nothing: importing torch loads it.)"""
+    fd_dir = f"/proc/{pid}/fd"
+    out = set()
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def _fleet_launcher(src):
+    """``python -m repro_torch.launch.serve --arch qwen2-1.5b --full
+    --replicas 2``: with ``--once`` it must exit 0 after its probe through
+    the router; run long, one replica is SIGKILLed, a request through the
+    router is still answered, the supervisor prints its restart line and
+    the replica comes back; SIGTERM then drains the router and the
+    replicas.  The router process must hold no NVIDIA device file open
+    (it never initialises CUDA), and each replica must."""
+    import re
+    import signal
+    import threading
+
+    import numpy as np
+    from repro_torch.core.rpc import Channel, TcpTransport
+    from repro_torch.serving import encode_prompt_page, service
+    env = dict(os.environ, PYTHONPATH=src)
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen2-1.5b", "--full", "--replicas", "2"]
+    t0 = time.perf_counter()
+    once = subprocess.run(argv + ["--once"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    probe = [ln for ln in once.stdout.splitlines()
+             if ln.startswith("probe generated 4 tokens via router")]
+    if once.returncode != 0 or not probe:
+        raise AssertionError(f"--replicas 2 --once exited {once.returncode}: "
+                             f"{once.stdout[-800:]} {once.stderr[-1500:]}")
+    info = {"once": {"exit_code": once.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "serving_line": once.stdout.splitlines()[0]}}
+
+    proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines = queue.Queue()
+    log = []
+
+    def pump():
+        for ln in proc.stdout:
+            lines.put(ln.rstrip())
+    threading.Thread(target=pump, daemon=True).start()
+
+    def wait_line(pattern, timeout):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            try:
+                ln = lines.get(timeout=0.5)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            log.append(ln)
+            m = re.search(pattern, ln)
+            if m:
+                return m
+        raise AssertionError(f"no line /{pattern}/ from the launcher "
+                             f"(exit {proc.poll()}): {log[-20:]}")
+
+    ch = None
+    try:
+        t0 = time.perf_counter()
+        m = wait_line(r"bebop-rpc serving .+ on ([\w.\-]+):(\d+)", 600)
+        info["startup_s"] = time.perf_counter() - t0
+        kids = _children(proc.pid)
+        if len(kids) != 2:
+            raise AssertionError(f"router has children {kids}")
+        info["nvidia_device_files"] = {
+            "router": _nvidia_fds(proc.pid),
+            "replicas": [_nvidia_fds(k) for k in kids]}
+        if info["nvidia_device_files"]["router"] \
+                or not all(info["nvidia_device_files"]["replicas"]):
+            raise AssertionError(f"the router initialised CUDA, or a "
+                                 f"replica did not: "
+                                 f"{info['nvidia_device_files']}")
+        ch = Channel(TcpTransport.connect(m.group(1), int(m.group(2))))
+        inf = ch.typed(service.InferenceService)
+        page = encode_prompt_page(np.arange(1, 41, dtype=np.uint32)[None])
+
+        def answered():
+            t1 = time.perf_counter()
+            res = inf.Infer({"page": page, "max_new_tokens": 8}, timeout=300)
+            if int(res["new_tokens"]) != 8:
+                raise AssertionError(f"router answered {res}")
+            return (time.perf_counter() - t1) * 1e3
+        info["infer_ms_before_kill"] = answered()
+        os.kill(kids[0], signal.SIGKILL)
+        t1 = time.perf_counter()
+        info["infer_ms_after_kill"] = answered()
+        info["restart_line"] = wait_line(
+            r"\[supervisor\] replica \d exited .*restart", 60).group(0)
+
+        def routable():
+            st = inf.Stats({})
+            stats = dict(zip(st["names"].split("\n"), st["values"]))
+            return sum(stats[f"replica{i}_routable"] for i in range(2))
+        # the router's health poll gates the dead replica out, and back in
+        # once its successor answers
+        seen_down, end = False, time.monotonic() + 300
+        while time.monotonic() < end:
+            n = routable()
+            seen_down |= n < 2
+            if seen_down and n == 2:
+                break
+            time.sleep(0.1)
+        else:
+            raise AssertionError(f"replica not back: {log[-20:]}")
+        now = _children(proc.pid)
+        if len(now) != 2 or kids[0] in now:
+            raise AssertionError(f"router children {now}, killed {kids[0]}")
+        info["replica_back_s"] = time.perf_counter() - t1
+        info["infer_ms_after_restart"] = answered()
+        ch.close()
+        ch = None
+        proc.send_signal(signal.SIGTERM)
+        info["exit_code"] = proc.wait(timeout=120)
+        if info["exit_code"] != 0:
+            raise AssertionError(f"launcher exited {info['exit_code']}: "
+                                 f"{log[-20:]}")
+    finally:
+        if ch is not None:
+            ch.close()
+        if proc.poll() is None:
+            proc.kill()
+        try:                     # the replicas share the router's group
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait(timeout=60)
+    return info
+
+
 # -- the dense paths ------------------------------------------------------------
 
 
@@ -1880,15 +2514,16 @@ def _host_us(torch, fn, calls=2000):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def _attn_bound(qpos_rows, t, m, itemsize=2):
+def _attn_bound(qpos_rows, t, m, itemsize=2, heads=(HQ, HKV, HD)):
     """Least time for one paged-attention call: bytes (q in, out, each
     row's needed K/V once, tables, positions) over HBM bandwidth vs the
     QK and PV products over bf16 peak; the larger wins."""
+    hq, hkv, hd = heads
     b = len(qpos_rows)
     keys = [max(r) + 1 for r in qpos_rows]
-    nbytes = (2 * b * HQ * t * HD * itemsize
-              + sum(keys) * HKV * HD * 2 * itemsize + b * m * 4 + b * t * 4)
-    flops = sum(4 * HQ * HD * (p + 1) for r in qpos_rows for p in r)
+    nbytes = (2 * b * hq * t * hd * itemsize
+              + sum(keys) * hkv * hd * 2 * itemsize + b * m * 4 + b * t * 4)
+    flops = sum(4 * hq * hd * (p + 1) for r in qpos_rows for p in r)
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
@@ -2159,9 +2794,10 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
         flops = _flash_flops(1, hq, d, pairs)
         entry["tflops"] = flops / entry["ms"] / 1e9
         entry["library_tflops"] = flops / entry["library_ms"] / 1e9
-        if name == "recurrentgemma":
-            entry["launches_on_hybrid_path"] = state["hybrid_launches"][
-                "flash_attention.flash_attention"]
+        if name != "qwen2":
+            if name == "recurrentgemma":
+                entry["launches_on_hybrid_path"] = state["hybrid_launches"][
+                    "flash_attention.flash_attention"]
             extra[f"flash_attention@{name}_T{t}"] = entry
             continue
         kernels.append({
@@ -2187,8 +2823,51 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
         "max_abs_err": state["rwkv_kernel"]["bf16_o_max_abs_err"],
         **scans.pop("rwkv6_scan")})
     extra.update(scans)
+    extra.update(_gemma_attention_rows(torch, pa, dev, gen, flush, ctx, m,
+                                       n_blocks, state["gemma_launches"]))
     state["kernels"] = kernels
     return {"card": state["smi"], "extra": extra}
+
+
+def _gemma_attention_rows(torch, pa, dev, gen, flush, ctx, m, n_blocks,
+                          launches):
+    """Both paged kernels at gemma-2b's heads (Hq 8, Hkv 1, D 256) and the
+    serve rows' mid-generation contexts, bf16: rows beside #3 and #4, with
+    the launches of ``gemma_serve``."""
+    hq, hkv, hd = GEMMA_HEADS
+    b = len(ctx)
+    kp, vp = _pool(torch, gen, dev, n_blocks, torch.bfloat16, GEMMA_HEADS)
+    tables = _tables(torch, gen, dev, b, m, n_blocks)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    q1 = torch.randn((b, hq, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    shape = (f"B {b}, Hq {hq}, Hkv {hkv}, D {hd}, bs {BS}, M {m}, T {{}}, "
+             f"ctx {ctx}, bf16")
+    bound, by = _attn_bound([[c - 1] for c in ctx], 1, m, heads=GEMMA_HEADS)
+    rows = {"paged_attention@gemma": {
+        "ms": _cold_ms(torch, lambda: pa.paged_attention(
+            q1, kp, vp, tables, ctx_t), flush),
+        "plain_ms": _cold_ms(torch, lambda: pa.paged_attention_plain(
+            q1, kp, vp, tables, ctx_t), flush),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "launches_on_gemma_path": launches["paged_attention.paged_attention"],
+        "shape": shape.format(1)}}
+    for t in (32, 5):
+        qpos_t = torch.tensor([[c - t + i for i in range(t)] for c in ctx],
+                              dtype=torch.int32, device=dev)
+        q = torch.randn((b, hq, t, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        bound, by = _attn_bound(qpos_t.tolist(), t, m, heads=GEMMA_HEADS)
+        rows[f"paged_prefill_attention@gemma_T{t}"] = {
+            "ms": _cold_ms(torch, lambda: pa.paged_prefill_attention(
+                q, kp, vp, tables, qpos_t), flush),
+            "plain_ms": _cold_ms(torch, lambda: pa.paged_prefill_attention_plain(
+                q, kp, vp, tables, qpos_t), flush),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "launches_on_gemma_path": launches[
+                "paged_attention.paged_prefill_attention"],
+            "shape": shape.format(t)}
+    return rows
 
 
 if __name__ == "__main__":

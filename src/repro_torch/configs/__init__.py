@@ -4,14 +4,14 @@ from .base import (ModelConfig, MoEConfig, get_config,  # noqa: F401
 
 _LOADED = False
 
-ARCH_IDS = ["qwen2-1.5b", "recurrentgemma-9b", "rwkv6-7b"]
+ARCH_IDS = ["rwkv6-7b", "gemma-2b", "qwen2-1.5b", "yi-34b", "qwen2-72b",
+            "recurrentgemma-9b"]
 
 
 def load_all() -> None:
     global _LOADED
     if _LOADED:
         return
-    from . import qwen2_1_5b  # noqa: F401
-    from . import recurrentgemma_9b  # noqa: F401
-    from . import rwkv6_7b  # noqa: F401
+    from . import (rwkv6_7b, gemma_2b, qwen2_1_5b, yi_34b,  # noqa: F401
+                   qwen2_72b, recurrentgemma_9b)
     _LOADED = True

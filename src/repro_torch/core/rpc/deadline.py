@@ -1,10 +1,10 @@
 """Deadline propagation (§7.4): absolute wall-clock timestamps, ns precision.
 
 Every hop checks the same cutoff — no relative-timeout deduction, no rounding
-accumulation.  On the binary transports the deadline is the ``deadline``
-field of the CallHeader.  Copied from the JAX package's
-``core/rpc/deadline.py`` without the HTTP header form (the port carries no
-HTTP transport).
+accumulation.  On HTTP transports the deadline travels as a millisecond Unix
+timestamp in the ``bebop-deadline`` header; on binary transports it is the
+``deadline`` field of the CallHeader.  Both name the same wall-clock instant.
+Copied from the JAX package's ``core/rpc/deadline.py``.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import time
 from typing import Optional
 
 from ..types import Timestamp
+
+HTTP_HEADER = "bebop-deadline"
 
 
 class Deadline:
@@ -31,6 +33,11 @@ class Deadline:
     def from_timestamp(cls, ts: Timestamp) -> "Deadline":
         return cls(ts)
 
+    @classmethod
+    def from_http_header(cls, value: str) -> "Deadline":
+        ms = int(value)
+        return cls(Timestamp(ms // 1000, (ms % 1000) * 10**6))
+
     # -- queries -------------------------------------------------------------
     def cutoff_ns(self) -> int:
         return self.ts.sec * 10**9 + self.ts.ns
@@ -45,6 +52,9 @@ class Deadline:
     # -- propagation ---------------------------------------------------------
     def to_timestamp(self) -> Timestamp:
         return self.ts
+
+    def to_http_header(self) -> str:
+        return str(self.cutoff_ns() // 10**6)
 
     def __repr__(self):
         return f"Deadline(+{self.remaining():.3f}s)"

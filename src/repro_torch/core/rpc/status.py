@@ -1,7 +1,7 @@
 """Status codes: 0–16 aligned with gRPC, 17–255 application-defined (§7.8).
 
-Copied from the JAX package's ``core/rpc/status.py`` (without the HTTP
-status mapping): both packages put the same codes on the wire.
+Copied from the JAX package's ``core/rpc/status.py``: both packages put the
+same codes on the wire, and the same HTTP statuses on HTTP/1.1.
 """
 from __future__ import annotations
 
@@ -70,3 +70,16 @@ class ClientTimeout(RpcError):
 
     def __init__(self, message: str = "client timeout"):
         super().__init__(Status.DEADLINE_EXCEEDED, message)
+
+
+# gRPC status <-> HTTP status mapping for the HTTP/1.1 transport (§7.7).
+HTTP_FROM_STATUS = {
+    Status.OK: 200, Status.CANCELLED: 499, Status.UNKNOWN: 500,
+    Status.INVALID_ARGUMENT: 400, Status.DEADLINE_EXCEEDED: 504,
+    Status.NOT_FOUND: 404, Status.ALREADY_EXISTS: 409,
+    Status.PERMISSION_DENIED: 403, Status.RESOURCE_EXHAUSTED: 429,
+    Status.FAILED_PRECONDITION: 412, Status.ABORTED: 409,
+    Status.OUT_OF_RANGE: 400, Status.UNIMPLEMENTED: 501,
+    Status.INTERNAL: 500, Status.UNAVAILABLE: 503, Status.DATA_LOSS: 500,
+    Status.UNAUTHENTICATED: 401,
+}

@@ -18,12 +18,20 @@
     and :func:`build_server`; :class:`InferenceImpl` ``infer`` and
     ``score_page`` call the ``Infer`` and ``ScorePage`` handlers in
     process.
+  * :mod:`.router` — the replicated tier: a Bebop-RPC front door over N
+    replicas (health-gated routing, circuit breakers, keyed failover,
+    cursor-resumed stream failover, hedged ``Infer``, prefix affinity)
+    and :class:`InProcessReplica`, a killable replica over a shared
+    engine.
 """
 from .engine import (ContinuousBatcher, Engine, PagedBatcher,  # noqa: F401
                      ServeConfig, ShedError)
 from .ingest import DecodePlan, IngestResult, PageIngest, PlanCache  # noqa: F401
 from .kv_cache import (BlockAllocator, CacheOOM, PagedKVCache,  # noqa: F401
                        PrefixCache, aligned_block_size, block_keys)
+from .router import (CircuitBreaker, InProcessReplica,  # noqa: F401
+                     Replica, ReplicaRouter, RouterConfig,
+                     build_router_server)
 from .sampling import GREEDY, GenerationParams, SamplingParams  # noqa: F401
 from .service import (InferenceImpl, InferenceService,  # noqa: F401
                       build_server, decode_token_page, encode_gen_page,

@@ -12,8 +12,18 @@
   frame and scores as two separate calls do; ``InferStream`` chunks joined
   together equal the ``Infer`` page; ``drain`` finishes the call in flight
   while ``Health`` answers and new work is refused.
+* **The transports.**  ``Http1Transport`` puts the JAX transport's bytes
+  on the wire (requests, responses, error statuses), parses the same
+  streams the same way, and the ``bebop-deadline`` header is the JAX
+  form; a client of either package over HTTP/1.1 on TCP talks to a server
+  of either.  ``FaultInjectingTransport`` with one seed, or one
+  ``script``, damages, drops and cuts the same frames as the JAX one.
 * **The launcher.**  ``build_parser`` matches the JAX parser flag for
-  flag; ``main([... "--once"], device="cpu")`` exits 0 after its probe.
+  flag; ``main([... "--once"], device="cpu")`` exits 0 after its probe,
+  with one replica and with ``--replicas 2`` (both children on the CPU,
+  behind the router); a child's argv carries every flag of the JAX
+  launcher's ``_child_argv``, and a child asked for the card where there
+  is none exits at startup.
 
 Weights come from the JAX model (``params_from_numpy``) on
 ``reduced_config`` in float32; scores are held at 3e-5 / 1e-4.
@@ -31,11 +41,17 @@ from repro.configs import reduced_config as jax_reduced_config
 from repro.core import fastwire as jfastwire
 from repro.core import wire as jwire
 from repro.core.rpc import Channel as JaxChannel
+from repro.core.rpc import Deadline as JaxDeadline
+from repro.core.rpc import FaultInjectingTransport as JaxFaultTransport
+from repro.core.rpc import FaultSpec as JaxFaultSpec
+from repro.core.rpc import FramingError as JaxFramingError
+from repro.core.rpc import Http1Transport as JaxHttp1Transport
 from repro.core.rpc import Frame as JaxFrame
 from repro.core.rpc import TcpTransport as JaxTcpTransport
 from repro.core.rpc import connected_pair as jax_connected_pair
 from repro.core.rpc import encode_frame as jax_encode_frame
 from repro.core.rpc import wire_types as JW
+from repro.launch import serve as jax_serve
 from repro.launch.serve import build_parser as jax_build_parser
 from repro.serving import Engine as JaxEngine
 from repro.serving import ServeConfig as JaxServeConfig
@@ -45,10 +61,13 @@ from repro.serving import service as jservice
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import fastwire, wire
-from repro_torch.core.rpc import (Channel, Flags, Frame, ResilientChannel,
-                                  RpcError, Status, TcpTransport,
-                                  connected_pair, encode_frame)
+from repro_torch.core.rpc import (Channel, Deadline, FaultInjectingTransport,
+                                  FaultSpec, Flags, Frame, FramingError,
+                                  Http1Transport, ResilientChannel, RpcError,
+                                  Status, TcpTransport, connected_pair,
+                                  encode_frame)
 from repro_torch.core.rpc import wire_types as W
+from repro_torch.launch import serve
 from repro_torch.launch.serve import build_parser, main
 from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
                                  build_server, decode_token_page,
@@ -412,8 +431,203 @@ def test_launch_once_serves_a_probe_and_exits_zero(capsys):
     out = capsys.readouterr().out
     assert "(paged KV cache, cpu)" in out
     assert "probe generated 4 tokens" in out
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["--arch", "qwen2-1.5b", "--replicas", "2"], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)          # the card by default, and no fallback
+
+
+def test_launch_replicas_once_runs_children_on_the_callers_device(
+        monkeypatch, capsys):
+    """``--replicas 2 --once``: two children on the caller's device behind
+    the router, one probe through it, exit 0; a child asked for the card
+    where there is none exits at startup and the launcher raises."""
+    spawned = []
+    spawn = serve._spawn_child
+
+    def spy(argv):
+        spawned.append(argv)
+        return spawn(argv)
+
+    monkeypatch.setattr(serve, "_spawn_child", spy)
+    argv = ["--arch", "qwen2-1.5b", "--replicas", "2", "--once",
+            "--block-size", "8", "--prefill-chunk", "16"]
+    assert main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "(router, 2 replicas, cpu)" in out
+    assert "probe generated 4 tokens via router" in out
+    assert len(spawned) == 2
+    assert all(a[1] == "-c" and "device='cpu'" in a[2] for a in spawned)
+    if not torch.cuda.is_available():
+        spawned.clear()
+        with pytest.raises(RuntimeError, match="exited during startup"):
+            main(argv)          # the children default to the card too
+        assert len(spawned) == 1 and "device='cuda'" in spawned[0][2]
+
+
+@pytest.mark.parametrize("extra", [[], ["--blocking-prefill", "--dense-cache",
+                                        "--full", "--no-prefix-cache",
+                                        "--no-spec-decode", "--no-swap",
+                                        "--temperature", "0.7", "--seed",
+                                        "9"]])
+def test_child_argv_carries_every_jax_flag(extra):
+    argv = ["--arch", "gemma-2b", "--replicas", "3", "--cache-len", "77",
+            "--max-step-tokens", "5", "--top-k", "4"] + extra
+    got = serve._child_argv(build_parser().parse_args(argv), "cpu")
+    want = jax_serve._child_argv(jax_build_parser().parse_args(argv))
+    assert want[1:3] == ["-m", "repro.launch.serve"]
+    assert got[1] == "-c" and got[3:] == want[3:]
+
+
+# -- the transports -----------------------------------------------------------------
+
+class _Wire:
+    """Inner transport that records what is sent and replays ``chunks``."""
+
+    def __init__(self, chunks=()):
+        self.sent = []
+        self.chunks = list(chunks)
+        self.closed = False
+
+    def send(self, data):
+        self.sent.append(bytes(data))
+
+    def recv(self, timeout=None):
+        return self.chunks.pop(0) if self.chunks else b""
+
+    def close(self):
+        self.closed = True
+
+    @property
+    def peer(self):
+        return "wire"
+
+
+def _http_sends(cls):
+    c, srv = _Wire(), _Wire()
+    client, server = cls(c, client=True), cls(srv, client=False)
+    client.send(b"\x01frame-bytes")
+    client.send(b"")
+    server.send(b"\x02response" * 3)
+    for code in range(17):
+        server.send_error(code, b"why")
+    server.send_error(200, b"")           # an application code
+    return c.sent + srv.sent
+
+
+def test_http1_bytes_match_jax():
+    assert _http_sends(Http1Transport) == _http_sends(JaxHttp1Transport)
+    d = Deadline.after(3.5)
+    header = d.to_http_header()
+    assert header == JaxDeadline(d.ts).to_http_header()
+    assert Deadline.from_http_header(header).cutoff_ns() == \
+        JaxDeadline.from_http_header(header).cutoff_ns()
+
+
+@pytest.mark.parametrize("stream", [
+    [b"POST /bebop HTTP/1.1\r\ncontent-length: 5\r\n\r\nfirst"
+     b"HTTP/1.1 200 OK\r\ncontent-length: 6\r\n\r\nsecond"],
+    [b"HTTP/1.1 503 Error\r\nbebop-status: 14\r\ncontent-len",
+     b"gth: 3\r\n\r\nwh", b"y"],
+    [b"POST / HTTP/1.1\r\ncontent-length: 999999999999\r\n\r\n"],
+    [b"POST / HTTP/1.1\r\ncontent-length: two\r\n\r\n"],
+    [b"X" * 70000],
+    [b"POST / HTTP/1.1\r\ncontent-length: 10\r\n\r\nshort"]])
+def test_http1_parses_streams_as_jax_does(stream):
+    def bodies(cls, err):
+        t = cls(_Wire(stream), client=False)
+        out = []
+        for _ in range(3):
+            try:
+                out.append(t.recv(timeout=1.0))
+            except err as e:
+                out.append(("FramingError", str(e)))
+                break
+        return out
+    assert bodies(Http1Transport, FramingError) == \
+        bodies(JaxHttp1Transport, JaxFramingError)
+
+
+def _http_tcp_pair(client_tcp, client_http, server, server_tcp, server_http):
+    """A TCP connection on 127.0.0.1 with an HTTP/1.1 envelope on each
+    end: the client end from one package, the server end served by
+    ``server`` through the other's."""
+    import socket
+    lsock = socket.create_server(("127.0.0.1", 0))
+    try:
+        client = client_tcp.connect(*lsock.getsockname()[:2])
+        conn, _ = lsock.accept()
+    finally:
+        lsock.close()
+    server.serve_transport(server_http(server_tcp(conn), client=False),
+                           blocking=False)
+    return client_http(client, client=True)
+
+
+@pytest.mark.parametrize("client_pkg", ["port", "jax"])
+@pytest.mark.parametrize("server_pkg", ["port", "jax"])
+def test_http1_clients_and_servers_of_both_packages_agree(servers,
+                                                          client_pkg,
+                                                          server_pkg):
+    """Over HTTP/1.1 on TCP, every (client, server) pair returns the page
+    and the stream chunks that the binary TCP transport returns."""
+    server, addr, jserver, _ = servers
+    req = {"page": encode_prompt_page(_prompt(t=10, seed=14)),
+           "max_new_tokens": 5}
+    ch = _connect(server, addr, "tcp")
+    try:
+        inf = ch.typed(service.InferenceService)
+        want = bytes(bytearray(inf.Infer(req)["page"]))
+        want_chunks = [bytes(bytearray(c["page"])) for c in
+                       inf.InferStream(req)]
+    finally:
+        ch.close()
+    port_side = (TcpTransport, Http1Transport, Channel,
+                 service.InferenceService)
+    jax_side = (JaxTcpTransport, JaxHttp1Transport, JaxChannel,
+                jservice.InferenceService)
+    ctcp, chttp, chan, svc = port_side if client_pkg == "port" else jax_side
+    stcp, shttp, _, _ = port_side if server_pkg == "port" else jax_side
+    srv = server if server_pkg == "port" else jserver
+    ch = chan(_http_tcp_pair(ctcp, chttp, srv, stcp, shttp))
+    try:
+        inf = ch.typed(svc)
+        assert bytes(bytearray(inf.Infer(req)["page"])) == want
+        assert [bytes(bytearray(c["page"])) for c in inf.InferStream(req)] \
+            == want_chunks
+    finally:
+        ch.close()
+
+
+def _faults(cls, spec_cls, frames, **kw):
+    """What the inner wire received, and what each send raised, for one
+    wrapper fed ``frames``."""
+    inner = _Wire()
+    t = cls(inner, spec_cls(drop=0.15, truncate=0.15, corrupt=0.15,
+                            delay=0.15, delay_s=0.0), **kw)
+    raised = []
+    for f in frames:
+        try:
+            t.send(f)
+            raised.append(None)
+        except ConnectionError as e:
+            raised.append(str(e))
+    return inner.sent, raised, dict(t.injected), inner.closed
+
+
+@pytest.mark.parametrize("kw", [{"seed": s} for s in (0, 1, 7, 20240808)]
+                         + [{"seed": 3, "script": {0: "delay", 1: "drop",
+                                                   2: "truncate"}},
+                            {"seed": 4, "script": {1: "corrupt"}},
+                            {"seed": 5, "script": {2: "disconnect"}}])
+def test_fault_transport_damages_the_same_bytes_as_jax(kw):
+    frames = [encode_frame(Frame(i + 1, bytes(range(i % 7, 40 + i))))
+              for i in range(24)] + [b"\x01", b""]
+    # a cut line stops the wrapper: send each frame to a fresh wrapper
+    # too, so every draw of the seeded schedule is compared
+    got = _faults(FaultInjectingTransport, FaultSpec, frames, **kw)
+    assert got == _faults(JaxFaultTransport, JaxFaultSpec, frames, **kw)
+    assert sum(got[2].values()) > 0
+    for i in range(0, len(frames), 5):
+        assert _faults(FaultInjectingTransport, FaultSpec, frames[i:],
+                       **kw) == _faults(JaxFaultTransport, JaxFaultSpec,
+                                        frames[i:], **kw)
