@@ -357,16 +357,36 @@ def _attn_inputs(torch, gen, dev, b, t, m, n_blocks, dtype,
 
 
 def check_attention(torch, pa, dev):
+    """Both paged kernels against their plain versions at qwen2-1.5b's
+    heads (bf16 and f32) and at gemma-2b's (Hq 8, Hkv 1, D 256; bf16)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    b = 8
+    bf16 = (torch.bfloat16, ATTN_ATOL, ATTN_RTOL)
     out = {}
-    for dtype, atol, rtol in ((torch.bfloat16, ATTN_ATOL, ATTN_RTOL),
-                              (torch.float32, F32_ATOL, F32_RTOL)):
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    for heads, name, dtypes in (
+            ((HQ, HKV, HD), "", (bf16, (torch.float32, F32_ATOL, F32_RTOL))),
+            (GEMMA_HEADS, "gemma_", (bf16,))):
+        out.update(_check_paged(torch, pa, dev, gen, heads, name, dtypes))
+    torch.cuda.synchronize()
+    out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
+    out["tolerance_f32"] = {"atol": F32_ATOL, "rtol": F32_RTOL}
+    out["max_bf16_mismatch"] = MAX_BF16_MISMATCH
+    return out
+
+
+def _check_paged(torch, pa, dev, gen, heads, name, dtypes):
+    """Both paged kernels at ``heads`` (Hq, Hkv, D) for each of ``dtypes``
+    (dtype, atol, rtol): decode, T 5 and T 32 over ATTN_TABLES, with
+    unlisted blocks poisoned to show they never leak; then the share of
+    bf16 outputs that differ from the plain version's at the timing
+    contexts.  Keys are prefixed with ``name``."""
+    b, (hq, _, hd) = 8, heads
+    out = {}
+    for dtype, atol, rtol in dtypes:
+        tag = name + ("bf16" if dtype == torch.bfloat16 else "f32")
         for m, n_blocks, ctx, starts in ATTN_TABLES:
             tag_m = f"{tag}_keys{m * BS}"
             q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, 1, m,
-                                             n_blocks, dtype)
+                                             n_blocks, dtype, heads)
             q = q[:, :, 0]
             # decode: mixed context lengths, one ctx == 0 row (emits zeros)
             ctx = torch.tensor(ctx, dtype=torch.int32, device=dev)
@@ -398,7 +418,7 @@ def check_attention(torch, pa, dev):
                 qpos[1] = 19                      # a padded decode row
                 qpos[7] = 0                       # decode at position 0
                 qpos = qpos.to(torch.int32)
-                q = torch.randn((b, HQ, t, HD), generator=gen,
+                q = torch.randn((b, hq, t, hd), generator=gen,
                                 device=dev).to(dtype)
                 got = pa.paged_prefill_attention(q, kp, vp, tables, qpos)
                 want = pa.paged_prefill_attention_plain(q, kp, vp, tables,
@@ -418,65 +438,6 @@ def check_attention(torch, pa, dev):
     m = _table_width(ATTN_CTX)
     for t in (1, 5, 32):
         q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, t, m, 513,
-                                         torch.bfloat16)
-        qpos = torch.tensor([[c - t + i for i in range(t)] for c in ATTN_CTX],
-                            dtype=torch.int32, device=dev)
-        got = pa.paged_prefill_attention(q, kp, vp, tables, qpos) if t > 1 \
-            else pa.paged_attention(q[:, :, 0], kp, vp, tables,
-                                    qpos[:, 0] + 1)[:, :, None]
-        want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
-        share = float((got != want).float().mean())
-        out[f"bf16_mismatch_share@T{t}"] = share
-        if share > MAX_BF16_MISMATCH:
-            raise AssertionError(
-                f"paged bf16 T {t}: {share:.4%} of outputs differ from the "
-                f"plain version's (limit {MAX_BF16_MISMATCH:.0%})")
-    out.update(_check_attention_heads(torch, pa, dev, gen, GEMMA_HEADS,
-                                      "gemma"))
-    torch.cuda.synchronize()
-    out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
-    out["tolerance_f32"] = {"atol": F32_ATOL, "rtol": F32_RTOL}
-    out["max_bf16_mismatch"] = MAX_BF16_MISMATCH
-    return out
-
-
-def _check_attention_heads(torch, pa, dev, gen, heads, name):
-    """Both paged kernels in bf16 at another model's ``heads`` (Hq, Hkv,
-    D), held to the bf16 limits above: decode, T 5 and T 32 over
-    ATTN_TABLES, then the share of outputs that differ from the plain
-    version's at the timing contexts."""
-    b, (hq, _, hd) = 8, heads
-    out = {}
-    for m, n_blocks, ctx, starts in ATTN_TABLES:
-        tag = f"{name}_bf16_keys{m * BS}"
-        q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, 1, m, n_blocks,
-                                         torch.bfloat16, heads)
-        ctx = torch.tensor(ctx, dtype=torch.int32, device=dev)
-        got = pa.paged_attention(q[:, :, 0], kp, vp, tables, ctx)
-        want = pa.paged_attention_plain(q[:, :, 0], kp, vp, tables, ctx)
-        ok, err = _close(torch, got, want, ATTN_ATOL, ATTN_RTOL)
-        if not ok or bool(got[0].any()):
-            raise AssertionError(f"decode {tag}: max err {err}, ctx==0 row "
-                                 f"zero: {not bool(got[0].any())}")
-        out[f"decode_{tag}_max_abs_err"] = err
-        for t in (32, 5):
-            qpos = (torch.tensor(starts, device=dev)[:, None]
-                    + torch.arange(t, device=dev)[None]).clamp(
-                        max=m * BS - 1)
-            qpos[1] = 19                      # a padded decode row
-            qpos[7] = 0                       # decode at position 0
-            qpos = qpos.to(torch.int32)
-            q = torch.randn((b, hq, t, hd), generator=gen,
-                            device=dev).to(torch.bfloat16)
-            got = pa.paged_prefill_attention(q, kp, vp, tables, qpos)
-            want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
-            ok, err = _close(torch, got, want, ATTN_ATOL, ATTN_RTOL)
-            if not ok:
-                raise AssertionError(f"prefill T={t} {tag}: max err {err}")
-            out[f"prefill_t{t}_{tag}_max_abs_err"] = err
-    m = _table_width(ATTN_CTX)
-    for t in (1, 5, 32):
-        q, kp, vp, tables = _attn_inputs(torch, gen, dev, b, t, m, 513,
                                          torch.bfloat16, heads)
         qpos = torch.tensor([[c - t + i for i in range(t)] for c in ATTN_CTX],
                             dtype=torch.int32, device=dev)
@@ -485,12 +446,12 @@ def _check_attention_heads(torch, pa, dev, gen, heads, name):
                                     qpos[:, 0] + 1)[:, :, None]
         want = pa.paged_prefill_attention_plain(q, kp, vp, tables, qpos)
         share = float((got != want).float().mean())
-        out[f"{name}_bf16_mismatch_share@T{t}"] = share
+        out[f"{name}bf16_mismatch_share@T{t}"] = share
         if share > MAX_BF16_MISMATCH:
             raise AssertionError(
-                f"paged bf16 {name} T {t}: {share:.4%} of outputs differ "
-                f"from the plain version's (limit {MAX_BF16_MISMATCH:.0%})")
-    out[f"{name}_heads"] = {"hq": heads[0], "hkv": heads[1], "d": heads[2]}
+                f"paged bf16 {name}T {t}: {share:.4%} of outputs differ from "
+                f"the plain version's (limit {MAX_BF16_MISMATCH:.0%})")
+    out[f"{name}heads"] = {"hq": heads[0], "hkv": heads[1], "d": heads[2]}
     return out
 
 
@@ -826,25 +787,38 @@ def _drive(impl, requests):
 
 
 def serve(torch, bd, pa, dev, state):
+    """qwen2-1.5b at full width on the paged path (``_serve_wave``)."""
+    info, toks = _serve_wave(torch, bd, pa, dev, state["engine"])
+    state["launches"] = info["launches"]
+    state["serve_tokens"] = toks[:len(PROMPT_LENS)]
+    state["serve_tokens_per_s"] = info["tokens_per_s"]
+    return info
+
+
+def _serve_wave(torch, bd, pa, dev, engine):
+    """The serve traffic through ``engine``'s paged path: the nine prompt
+    pages x NEW_TOKENS at once, then a one-token follow-up of the first,
+    through ``InferenceImpl.infer`` under the default ServeConfig.  Fails
+    unless the three kernels of the path launched, the scheduler took its
+    mixed, spec-verify, prefix-hit and copy-on-write paths, and the greedy
+    tokens equal a replay through the plain versions under the split rule.
+    Returns (info, token arrays)."""
     import numpy as np
     from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
                                      decode_token_page, encode_prompt_page)
 
-    engine = state["engine"]
     cfg = engine.cfg
     widths = []   # (step width, seconds) of every model step in the run
+    for name in ("paged_step", "paged_step_verify"):
+        fn = getattr(engine.model, name)
 
-    def timed(fn):
-        def run(params, tokens, *args):
+        def run(params, tokens, *args, _fn=fn):
             t0 = time.perf_counter()
-            out = fn(params, tokens, *args)
+            out = _fn(params, tokens, *args)
             torch.cuda.synchronize()   # the batcher syncs here anyway
             widths.append((int(tokens.shape[1]), time.perf_counter() - t0))
             return out
-        return run
-
-    engine.model.paged_step = timed(engine.model.paged_step)
-    engine.model.paged_step_verify = timed(engine.model.paged_step_verify)
+        setattr(engine.model, name, run)
     prompts = _prompts(cfg.vocab_size)
     # the wave, then a one-token follow-up of the first prompt: its only
     # generation step has no draft budget, so it is a plain decode step
@@ -869,6 +843,10 @@ def serve(torch, bd, pa, dev, state):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing} ({launches})")
+    missed = [k for k in ("prefix_hits", "cow_copies", "spec_steps",
+                          "mixed_steps") if stats[k] <= 0]
+    if missed:
+        raise AssertionError(f"scheduler paths not taken: {missed} ({stats})")
     toks = [decode_token_page(r["page"]) for r in out]
     for r, t, (_, n) in zip(out, toks, wave + follow):
         if r["batch"] != 1 or r["new_tokens"] != n or t.shape != (1, n) \
@@ -901,9 +879,6 @@ def serve(torch, bd, pa, dev, state):
     for w, s in widths:
         by_width.setdefault(w, []).append(s * 1e3)
     n_tokens = sum(r["new_tokens"] for r in out)
-    state["launches"] = launches
-    state["serve_tokens"] = toks[:len(prompts)]
-    state["serve_tokens_per_s"] = n_tokens / wall
     return {"requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
             "tokens_per_s": n_tokens / wall, "launches": launches,
             "steps": len(widths),
@@ -913,7 +888,7 @@ def serve(torch, bd, pa, dev, state):
             "stats": stats, "tokens_vs_plain": {
                 "tokens_checked": n_tokens, "splits_within_tolerance": splits,
                 "largest_split_margin": worst, "split_margin": SPLIT_MARGIN,
-                "max_splits": MAX_SPLITS}}
+                "max_splits": MAX_SPLITS}}, toks
 
 
 def profile(torch, dev, state):
@@ -1547,22 +1522,18 @@ def gemma_serve(torch, bd, pa, dev, state):
     """gemma-2b at full width (18 layers, d_model 2048, 8 query heads over
     one KV head of 256, GeGLU, the tied embedding scaled by sqrt(d), vocab
     256,000, bf16) on the paged path: its step logits against the plain
-    attention's, then the serve phase's nine prompt pages x 32 new tokens
-    and the one-token follow-up through ``InferenceImpl.infer`` under the
-    default ServeConfig (mixed steps, spec verify, the prefix cache, copy
-    on write), tokens against a replay through the plain versions."""
+    attention's, then the serve phase's traffic and checks
+    (``_serve_wave``)."""
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
-    from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
-                                     encode_prompt_page)
+    from repro_torch.serving import Engine, ServeConfig
     cfg = get_config("gemma-2b")
     t0 = time.perf_counter()
     engine = Engine(cfg, ServeConfig(), seed=SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
     info = {"layers": cfg.num_layers, "d_model": cfg.d_model,
             "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
             "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
@@ -1571,72 +1542,16 @@ def gemma_serve(torch, bd, pa, dev, state):
                                for t in _leaves(engine.params)),
             "logit_tol": GEMMA_LOGIT_TOL,
             "logit_tol_from_measured": GEMMA_LOGIT_MEASURED}
+    plain = DecoderLM(dataclasses.replace(cfg, attention_impl="reference"))
     info.update(_hold_step_logits(torch, _step_logits(
-        torch, cfg, engine.params, {"kernel": engine.model,
-                                    "plain": DecoderLM(plain_cfg)}, dev,
-        SEED + 12), GEMMA_LOGIT_TOL))
-
-    widths = []
-    for name in ("paged_step", "paged_step_verify"):
-        fn = getattr(engine.model, name)
-
-        def run(params, tokens, *args, _fn=fn):
-            t0 = time.perf_counter()
-            out = _fn(params, tokens, *args)
-            torch.cuda.synchronize()   # the batcher syncs here anyway
-            widths.append((int(tokens.shape[1]), time.perf_counter() - t0))
-            return out
-        setattr(engine.model, name, run)
-    prompts = _prompts(cfg.vocab_size)
-    wave = [(encode_prompt_page(p[None]), NEW_TOKENS) for p in prompts]
-    follow = [(encode_prompt_page(prompts[0][None]), 1)]
-    impl = InferenceImpl(engine)
-    counters = (bd.decode_columns, pa.paged_attention,
-                pa.paged_prefill_attention)
-    for fn in counters:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    out = _drive(impl, wave) + _drive(impl, follow)
-    wall = time.perf_counter() - t0
-    launches = {f"{fn.__module__.split('.')[-1]}.{fn.__name__}": fn.launches
-                for fn in counters}
-    stats = impl.batcher.collect_stats()
-    impl.close()
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"kernels not launched on gemma's paged path: "
-                             f"{launches}")
-    if stats["prefix_hits"] <= 0 or stats["cow_copies"] <= 0 \
-            or stats["spec_steps"] <= 0 or stats["mixed_steps"] <= 0:
-        raise AssertionError(f"gemma serve missed a scheduler path: {stats}")
-    toks = _tokens(out)
-    for t, (_, n) in zip(toks, wave + follow):
-        if t.shape != (1, n) or int(t.max()) >= cfg.vocab_size:
-            raise AssertionError(f"bad response {t.shape} for {n} tokens")
-    ref = Engine(plain_cfg, ServeConfig(), params=engine.params, device=dev)
-    ref_impl = InferenceImpl(ref)
-    ref_toks = _tokens(_drive(ref_impl, wave) + _drive(ref_impl, follow))
-    ref_impl.close()
-    vs_plain = _match(torch, ref, [p[None] for p in prompts + prompts[:1]],
-                      toks, ref_toks, "gemma vs plain replay")
-    by_width = {}
-    for w, sec in widths:
-        by_width.setdefault(w, []).append(sec * 1e3)
-    n_tokens = sum(t.size for t in toks)
-    state["gemma_launches"] = launches
-    del engine, ref
+        torch, cfg, engine.params, {"kernel": engine.model, "plain": plain},
+        dev, SEED + 12), GEMMA_LOGIT_TOL))
+    wave, _ = _serve_wave(torch, bd, pa, dev, engine)
+    state["gemma_launches"] = wave["launches"]
+    del engine, plain
     gc.collect()
     torch.cuda.empty_cache()
-    return {**info, "requests": len(out), "tokens_out": n_tokens,
-            "wall_s": wall, "tokens_per_s": n_tokens / wall,
-            "launches": launches, "steps": len(widths),
-            "step_ms_by_width": {
-                str(w): {"steps": len(v), "mean_ms": sum(v) / len(v),
-                         "max_ms": max(v)}
-                for w, v in sorted(by_width.items())},
-            "stats": {k: stats[k] for k in (
-                "requests", "prefix_hits", "cow_copies", "spec_steps",
-                "spec_accepted", "mixed_steps", "decode_steps")},
-            "tokens_vs_plain": vs_plain}
+    return {**info, **wave}
 
 
 # -- the replicated tier -------------------------------------------------------
@@ -1746,7 +1661,8 @@ def fleet_serve(torch, bd, pa, dev, state):
     resumes it on the survivor from its watermark, so the two must agree:
     generation on the card must not depend on which process runs it); a
     keyed ``Infer`` across a replica kill, answered once; hedging with one
-    slow link; the router's host time.  Then the launcher with
+    slow link; the router's host time.  The nine pages also go through a
+    router that picks by load (prefix affinity off).  Then the launcher with
     ``--replicas 2`` as subprocesses (``_fleet_launcher``)."""
     import threading
 
@@ -1778,6 +1694,28 @@ def fleet_serve(torch, bd, pa, dev, state):
     finally:
         sserver.drain(timeout=30)
         single.close()
+
+    # the same wave through a router with prefix affinity off (the pick by
+    # load): the router's cost apart from how this prompt set hashes
+    lreps = [InProcessReplica(engine, f"load{i}") for i in range(2)]
+    lserver, lrouter = build_router_server(
+        lreps, RouterConfig(health_interval_s=0, hedge=False,
+                            affinity_prefix=0))
+    lhost, lport, _ = lserver.listen_tcp()
+    try:
+        lgot, load_s, load_wall = _tcp_wave(lhost, lport, pages, FLEET_NEW)
+        lserved = [r.impl.batcher.collect_stats()["requests"] for r in lreps]
+    finally:
+        lserver.drain(timeout=30)
+        lrouter.close()
+        for r in lreps:
+            r.kill()
+    info["pages_by_load"] = {
+        "requests_per_replica": lserved,
+        "vs_one_replica": _match(torch, ref, [p[None] for p in prompts],
+                                 lgot, want, "load-picked vs one replica"),
+        "router": {**_latency(load_s),
+                   "tokens_per_s": len(pages) * FLEET_NEW / load_wall}}
 
     for fn in counters:
         fn.launches = 0
@@ -2704,68 +2642,21 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
             **decode.pop(name)})
     extra.update({f"bebop_decode.{k}": v for k, v in decode.items()})
     # attention at the serve rows' mid-generation contexts
-    ctx = list(ATTN_CTX)
-    b = len(ctx)
-    m = _table_width(ctx)
-    n_blocks = 8 * (1024 // BS) + 1            # the default pool
-    kp, vp = _pool(torch, gen, dev, n_blocks, torch.bfloat16)
-    tables = _tables(torch, gen, dev, b, m, n_blocks)
-    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
-    q1 = torch.randn((b, HQ, HD), generator=gen, device=dev).to(torch.bfloat16)
-    bound, by = _attn_bound([[c - 1] for c in ctx], 1, m)
-    err = state["attention_kernels"]["decode_bf16_keys1024_max_abs_err"]
-    kernels.append({
-        "name": "paged_attention.paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:109",
-        "launches": launches["paged_attention.paged_attention"],
-        "max_abs_err": err,
-        "ms": _cold_ms(torch, lambda: pa.paged_attention(
-            q1, kp, vp, tables, ctx_t), flush),
-        "plain_ms": _cold_ms(torch, lambda: pa.paged_attention_plain(
-            q1, kp, vp, tables, ctx_t), flush),
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shape": f"B {b}, Hq {HQ}, Hkv {HKV}, D {HD}, bs {BS}, M {m}, T 1, "
-                 f"ctx {ctx}, bf16"})
-    for t in (32, 5):
-        qpos = [[c - t + i for i in range(t)] for c in ctx]
-        qpos_t = torch.tensor(qpos, dtype=torch.int32, device=dev)
-        q = torch.randn((b, HQ, t, HD), generator=gen,
-                        device=dev).to(torch.bfloat16)
-        bound, by = _attn_bound(qpos, t, m)
-        entry = {
-            "ms": _cold_ms(torch, lambda: pa.paged_prefill_attention(
-                q, kp, vp, tables, qpos_t), flush),
-            "plain_ms": _cold_ms(torch, lambda: pa.paged_prefill_attention_plain(
-                q, kp, vp, tables, qpos_t), flush),
-            "bound_ms": bound, "bound_by": by}
-        # yardstick only (not the same inputs: K/V pre-gathered, the gather
-        # untimed); the port never calls it
-        tbl = tables.long()
-        kg = kp[tbl].permute(0, 2, 1, 3, 4).reshape(b, HKV, m * BS, HD)
-        vg = vp[tbl].permute(0, 2, 1, 3, 4).reshape(b, HKV, m * BS, HD)
-        kg = kg.repeat_interleave(HQ // HKV, 1)
-        vg = vg.repeat_interleave(HQ // HKV, 1)
-        mask = (torch.arange(m * BS, device=dev)[None, None]
-                <= qpos_t.long()[:, :, None])[:, None]
-        entry["sdpa_on_gathered_kv_ms"] = _cold_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                q, kg, vg, attn_mask=mask), flush)
-        extra[f"paged_prefill_attention@T{t}"] = entry
-        if t == 32:
-            kernels.append({
-                "name": "paged_attention.paged_prefill_attention",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-                "replaces": "src/repro/kernels/paged_attention.py:215",
-                "launches": launches[
-                    "paged_attention.paged_prefill_attention"],
-                "max_abs_err": state["attention_kernels"][
-                    "prefill_t32_bf16_keys1024_max_abs_err"],
-                "ms": entry["ms"], "plain_ms": entry["plain_ms"],
-                "bound_ms": bound, "bound_by": by, "library_ms": None,
-                "shape": f"B {b}, Hq {HQ}, Hkv {HKV}, D {HD}, bs {BS}, M {m}, "
-                         f"T {t}, ctx {ctx}, bf16"})
+    rows = _paged_rows(torch, pa, dev, gen, flush, (HQ, HKV, HD))
+    for name, line, key, row in (
+            ("paged_attention", 109, "decode_bf16_keys1024",
+             rows.pop("paged_attention")),
+            ("paged_prefill_attention", 215, "prefill_t32_bf16_keys1024",
+             rows["paged_prefill_attention@T32"])):
+        kernels.append({
+            "name": f"paged_attention.{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": f"src/repro/kernels/paged_attention.py:{line}",
+            "launches": launches[f"paged_attention.{name}"],
+            "max_abs_err": state["attention_kernels"][f"{key}_max_abs_err"],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape")}})
+    extra.update(rows)
     # flash attention at qwen2-1.5b's longest served prefill (B 1, T 400)
     # and, as an extra row, recurrentgemma-9b's long prompt (T 2000)
     for name, (hq, hkv, d, t, window) in FLASH_FULL.items():
@@ -2823,50 +2714,68 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
         "max_abs_err": state["rwkv_kernel"]["bf16_o_max_abs_err"],
         **scans.pop("rwkv6_scan")})
     extra.update(scans)
-    extra.update(_gemma_attention_rows(torch, pa, dev, gen, flush, ctx, m,
-                                       n_blocks, state["gemma_launches"]))
+    # the same rows at gemma-2b's heads, with gemma_serve's launches
+    for key, row in _paged_rows(torch, pa, dev, gen, flush,
+                                GEMMA_HEADS).items():
+        fn, _, t = key.partition("@")
+        row["launches_on_gemma_path"] = state["gemma_launches"][
+            f"paged_attention.{fn}"]
+        extra[f"{fn}@gemma" + (f"_{t}" if t else "")] = row
     state["kernels"] = kernels
     return {"card": state["smi"], "extra": extra}
 
 
-def _gemma_attention_rows(torch, pa, dev, gen, flush, ctx, m, n_blocks,
-                          launches):
-    """Both paged kernels at gemma-2b's heads (Hq 8, Hkv 1, D 256) and the
-    serve rows' mid-generation contexts, bf16: rows beside #3 and #4, with
-    the launches of ``gemma_serve``."""
-    hq, hkv, hd = GEMMA_HEADS
+def _paged_rows(torch, pa, dev, gen, flush, heads):
+    """Both paged kernels in bf16 at ``heads`` (Hq, Hkv, D) and the serve
+    rows' mid-generation contexts over the default pool: a row each for
+    decode (T 1) and for T 32 and T 5, with the plain version's time, the
+    bound, and (T > 1) SDPA on K/V gathered beforehand as a yardstick."""
+    import torch.nn.functional as F
+    hq, hkv, hd = heads
+    ctx = list(ATTN_CTX)
     b = len(ctx)
-    kp, vp = _pool(torch, gen, dev, n_blocks, torch.bfloat16, GEMMA_HEADS)
+    m = _table_width(ctx)
+    n_blocks = 8 * (1024 // BS) + 1            # the default pool
+    kp, vp = _pool(torch, gen, dev, n_blocks, torch.bfloat16, heads)
     tables = _tables(torch, gen, dev, b, m, n_blocks)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
-    q1 = torch.randn((b, hq, hd), generator=gen, device=dev).to(
-        torch.bfloat16)
+    q1 = torch.randn((b, hq, hd), generator=gen, device=dev).to(torch.bfloat16)
     shape = (f"B {b}, Hq {hq}, Hkv {hkv}, D {hd}, bs {BS}, M {m}, T {{}}, "
              f"ctx {ctx}, bf16")
-    bound, by = _attn_bound([[c - 1] for c in ctx], 1, m, heads=GEMMA_HEADS)
-    rows = {"paged_attention@gemma": {
+    bound, by = _attn_bound([[c - 1] for c in ctx], 1, m, heads=heads)
+    rows = {"paged_attention": {
         "ms": _cold_ms(torch, lambda: pa.paged_attention(
             q1, kp, vp, tables, ctx_t), flush),
         "plain_ms": _cold_ms(torch, lambda: pa.paged_attention_plain(
             q1, kp, vp, tables, ctx_t), flush),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "launches_on_gemma_path": launches["paged_attention.paged_attention"],
         "shape": shape.format(1)}}
     for t in (32, 5):
-        qpos_t = torch.tensor([[c - t + i for i in range(t)] for c in ctx],
-                              dtype=torch.int32, device=dev)
-        q = torch.randn((b, hq, t, hd), generator=gen, device=dev).to(
-            torch.bfloat16)
-        bound, by = _attn_bound(qpos_t.tolist(), t, m, heads=GEMMA_HEADS)
-        rows[f"paged_prefill_attention@gemma_T{t}"] = {
+        qpos = [[c - t + i for i in range(t)] for c in ctx]
+        qpos_t = torch.tensor(qpos, dtype=torch.int32, device=dev)
+        q = torch.randn((b, hq, t, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        bound, by = _attn_bound(qpos, t, m, heads=heads)
+        entry = {
             "ms": _cold_ms(torch, lambda: pa.paged_prefill_attention(
                 q, kp, vp, tables, qpos_t), flush),
             "plain_ms": _cold_ms(torch, lambda: pa.paged_prefill_attention_plain(
                 q, kp, vp, tables, qpos_t), flush),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "launches_on_gemma_path": launches[
-                "paged_attention.paged_prefill_attention"],
             "shape": shape.format(t)}
+        # yardstick only (not the same inputs: K/V pre-gathered, the gather
+        # untimed); the port never calls it
+        tbl = tables.long()
+        kg = kp[tbl].permute(0, 2, 1, 3, 4).reshape(b, hkv, m * BS, hd)
+        vg = vp[tbl].permute(0, 2, 1, 3, 4).reshape(b, hkv, m * BS, hd)
+        kg = kg.repeat_interleave(hq // hkv, 1)
+        vg = vg.repeat_interleave(hq // hkv, 1)
+        mask = (torch.arange(m * BS, device=dev)[None, None]
+                <= qpos_t.long()[:, :, None])[:, None]
+        entry["sdpa_on_gathered_kv_ms"] = _cold_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, kg, vg, attn_mask=mask), flush)
+        rows[f"paged_prefill_attention@T{t}"] = entry
     return rows
 
 
