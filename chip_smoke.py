@@ -69,6 +69,12 @@ SEED = 0
 HQ, HKV, HD, BS = 12, 2, 128, 16
 # gemma-2b's attention heads: 8 query heads over one KV head, head_dim 256
 GEMMA_HEADS = (8, 1, 256)
+# qwen2-moe-a2.7b's (MHA, g = 1), granite-moe-1b-a400m's (g = 2, head_dim
+# 64) and seamless-m4t-medium's (MHA, head_dim 64)
+QMOE_HEADS = (16, 16, 128)
+GRANITE_HEADS = (16, 8, 64)
+SEAMLESS_HEADS = (16, 16, 64)
+SEAMLESS_FRAMES = 50                # the encoder's frames in encdec_serve
 PROMPT_LENS = (16, 40, 64, 97, 128, 200, 256, 331, 400)
 NEW_TOKENS = 32
 HYBRID_PROMPTS = (0, 3, 5, 7, 8)    # PROMPT_LENS 16, 97, 200, 331, 400
@@ -239,6 +245,9 @@ def main(argv=None) -> int:
     Phase("hybrid_serve")(lambda: hybrid_serve(torch, bd, fa, rg, dev,
                                                  state))
     Phase("rwkv_serve")(lambda: rwkv_serve(torch, bd, rw, dev, state))
+    Phase("moe_serve")(lambda: moe_serve(torch, bd, pa, dev, state))
+    Phase("vlm_prefill")(lambda: vlm_prefill(torch, fa, dev, state))
+    Phase("encdec_serve")(lambda: encdec_serve(torch, bd, fa, dev, state))
     Phase("timing")(lambda: timing(torch, bd, pa, fa, rg, rw, dev, state))
     emit(json.dumps({"kernels": state["kernels"]}))
     emit(json.dumps({"ok": True, "device": {
@@ -358,13 +367,17 @@ def _attn_inputs(torch, gen, dev, b, t, m, n_blocks, dtype,
 
 def check_attention(torch, pa, dev):
     """Both paged kernels against their plain versions at qwen2-1.5b's
-    heads (bf16 and f32) and at gemma-2b's (Hq 8, Hkv 1, D 256; bf16)."""
+    heads (bf16 and f32), at gemma-2b's (Hq 8, Hkv 1, D 256), at
+    qwen2-moe-a2.7b's (16, 16, 128) and at granite-moe-1b-a400m's (16, 8,
+    64: the bf16 body's D 64 build), bf16."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = (torch.bfloat16, ATTN_ATOL, ATTN_RTOL)
     out = {}
     for heads, name, dtypes in (
             ((HQ, HKV, HD), "", (bf16, (torch.float32, F32_ATOL, F32_RTOL))),
-            (GEMMA_HEADS, "gemma_", (bf16,))):
+            (GEMMA_HEADS, "gemma_", (bf16,)),
+            (QMOE_HEADS, "qmoe_", (bf16,)),
+            (GRANITE_HEADS, "granite_", (bf16,))):
         out.update(_check_paged(torch, pa, dev, gen, heads, name, dtypes))
     torch.cuda.synchronize()
     out["tolerance_bf16"] = {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}
@@ -464,22 +477,36 @@ def _table_width(ctx):
 
 
 #: (Tq, S, causal, window, q_offset): prefill shapes (Tq == S, ragged),
-#: queries at an offset, non-causal, both windows at S 2100, and rows
-#: whose window holds no key (qpos 14..17 over keys 0..9, window 8)
+#: queries at an offset, non-causal (and seamless's cross-attention over
+#: 50 frames at Tq 400 and at a decode step's Tq 1), both windows at S
+#: 2100, and rows whose window holds no key (qpos 14..17 over keys 0..9,
+#: window 8)
 FLASH_CASES = ((1, 1, True, None, 0), (7, 7, True, None, 0),
                (128, 128, True, None, 0), (400, 400, True, None, 0),
                (64, 300, True, None, 236), (7, 100, True, None, 50),
-               (100, 333, False, None, 0), (2100, 2100, True, 8, 0),
+               (100, 333, False, None, 0),
+               (400, SEAMLESS_FRAMES, False, None, 0),
+               (1, SEAMLESS_FRAMES, False, None, 0),
+               (2100, 2100, True, 8, 0),
                (2100, 2100, True, 2048, 0), (4, 10, True, 8, 14))
-#: (Hq, Hkv, D): qwen2-1.5b and recurrentgemma-9b
-FLASH_HEADS = ((12, 2, 128), (16, 1, 256))
-#: the full-width prefills the main paths give the flash kernel, B 1,
-#: causal: qwen2-1.5b's longest served prompt, recurrentgemma-9b's long one,
-#: and gemma-2b's heads at T 400 (its dense fallback's shape)
-#: (name: Hq, Hkv, D, T, window)
-FLASH_FULL = {"qwen2": (HQ, HKV, HD, max(PROMPT_LENS), None),
-              "recurrentgemma": (16, 1, 256, LONG_PROMPT, 2048),
-              "gemma": (*GEMMA_HEADS, max(PROMPT_LENS), None)}
+#: (Hq, Hkv, D): qwen2-1.5b (and qwen2-vl-2b), recurrentgemma-9b and
+#: seamless-m4t-medium (the D 64 build)
+FLASH_HEADS = ((12, 2, 128), (16, 1, 256), SEAMLESS_HEADS)
+#: the full-width calls the main paths give the flash kernel, B 1:
+#: qwen2-1.5b's longest served prompt, recurrentgemma-9b's long one,
+#: gemma-2b's heads at T 400 (its dense fallback's shape), and
+#: seamless-m4t-medium's causal decoder prefill at T 400 and its
+#: cross-attention over 50 frames (name: Hq, Hkv, D, Tq, S, causal, window)
+FLASH_FULL = {"qwen2": (HQ, HKV, HD, max(PROMPT_LENS), max(PROMPT_LENS),
+                        True, None),
+              "recurrentgemma": (16, 1, 256, LONG_PROMPT, LONG_PROMPT, True,
+                                 2048),
+              "gemma": (*GEMMA_HEADS, max(PROMPT_LENS), max(PROMPT_LENS),
+                        True, None),
+              "seamless": (*SEAMLESS_HEADS, max(PROMPT_LENS),
+                           max(PROMPT_LENS), True, None),
+              "seamless_cross": (*SEAMLESS_HEADS, max(PROMPT_LENS),
+                                 SEAMLESS_FRAMES, False, None)}
 #: the share of bf16 outputs at FLASH_FULL that may differ from the plain
 #: version's.  Both sum in f32 and round once to bf16, so they differ only
 #: where the two f32 sums straddle a rounding boundary: with the kernel's
@@ -487,6 +514,10 @@ FLASH_FULL = {"qwen2": (HQ, HKV, HD, max(PROMPT_LENS), None),
 #: ulp of 2^-8, a few in a thousand.  A P rounded to one bf16 errs by up
 #: to 2^-9 relative, half a bf16 ulp, and would move far more.
 MAX_BF16_MISMATCH = 0.01
+
+
+def _flash_tag(name, tq, s):
+    return f"{name}_T{tq}" if tq == s else f"{name}_Tq{tq}_S{s}"
 
 
 def check_flash(torch, fa, dev):
@@ -521,19 +552,20 @@ def check_flash(torch, fa, dev):
                                              f"valid key is not zero")
                 worst = max(worst, err)
         out[f"{tag}_max_abs_err"] = worst
-    for name, (hq, hkv, d, t, window) in FLASH_FULL.items():
+    for name, (hq, hkv, d, tq, s, causal, window) in FLASH_FULL.items():
         q, k, v = (torch.randn((1, h, t, d), generator=gen, device=dev).to(
-            torch.bfloat16) for h in (hq, hkv, hkv))
-        got = fa.flash_attention(q, k, v, window=window)
-        want = fa.flash_attention_plain(q, k, v, window=window)
+            torch.bfloat16) for h, t in ((hq, tq), (hkv, s), (hkv, s)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
         ok, err = _close(torch, got, want, ATTN_ATOL, ATTN_RTOL)
         share = float((got != want).float().mean())
-        out[f"bf16_mismatch_share@{name}_T{t}"] = share
+        out[f"bf16_mismatch_share@{_flash_tag(name, tq, s)}"] = share
         if not ok or share > MAX_BF16_MISMATCH:
             raise AssertionError(
-                f"flash bf16 {name} T {t}: max err {err}, {share:.4%} of "
-                f"outputs differ from the plain version's (limit "
-                f"{MAX_BF16_MISMATCH:.0%})")
+                f"flash bf16 {name} Tq {tq} S {s}: max err {err}, "
+                f"{share:.4%} of outputs differ from the plain version's "
+                f"(limit {MAX_BF16_MISMATCH:.0%})")
     torch.cuda.synchronize()
     out["cases"] = 2 * len(FLASH_HEADS) * len(FLASH_CASES) + len(FLASH_FULL)
     out["fully_masked_rows_zero"] = True
@@ -689,10 +721,20 @@ def check_model(torch, dev, state):
     return info
 
 
-def _step_logits(torch, cfg, params, models, dev, seed):
+#: tokens each row of ``_step_logits``' mixed step advances: rows 0-3 a
+#: full 32-token chunk, rows 4-5 a 20-token chunk (padding routed to the
+#: null block), rows 6-7 one decode token
+STEP_ADVANCE = (32, 32, 32, 32, 20, 20, 1, 1)
+
+
+def _step_logits(torch, cfg, params, models, dev, seed, step=None):
     """Logits of a mixed step and of the decode step after it, for each of
     ``models`` (name: model) on ``params``, from one seeded draw of
-    tokens."""
+    tokens.  ``step(name, model, params, tokens, pool, tables, positions,
+    last_idx)`` runs a step (default: ``model.paged_step``)."""
+    if step is None:
+        def step(name, model, *args):
+            return model.paged_step(*args)
     gen = torch.Generator(device=dev).manual_seed(seed)
     b, c, m = 8, 32, 4
     tables = (torch.arange(b * m, device=dev, dtype=torch.int32)
@@ -701,7 +743,7 @@ def _step_logits(torch, cfg, params, models, dev, seed):
     # chunk (padding routed to the null block), rows 6-7 decode one token
     toks = torch.randint(0, cfg.vocab_size, (b, c), generator=gen,
                          device=dev, dtype=torch.int32)
-    adv = torch.tensor([32, 32, 32, 32, 20, 20, 1, 1], device=dev)
+    adv = torch.tensor(STEP_ADVANCE, device=dev)
     pos = torch.minimum(torch.arange(c, device=dev)[None], adv[:, None] - 1)
     pos = pos.to(torch.int32)
     last = (adv - 1).to(torch.int32)
@@ -711,10 +753,11 @@ def _step_logits(torch, cfg, params, models, dev, seed):
     out = {}
     for name, model in models.items():
         pool = model.init_paged_pool(b * m + 1, BS, dev)
-        mixed, pool = model.paged_step(params, toks, pool, tables, pos, last)
-        dec, pool = model.paged_step(params, dec_toks, pool, tables, dec_pos,
-                                     torch.zeros(b, dtype=torch.int32,
-                                                 device=dev))
+        mixed, pool = step(name, model, params, toks, pool, tables, pos,
+                           last)
+        dec, pool = step(name, model, params, dec_toks, pool, tables,
+                         dec_pos, torch.zeros(b, dtype=torch.int32,
+                                              device=dev))
         out[name] = (mixed.float(), dec.float())
     return out
 
@@ -795,28 +838,96 @@ def serve(torch, bd, pa, dev, state):
     return info
 
 
-def _serve_wave(torch, bd, pa, dev, engine):
+def _forced_log():
+    return {"positions": 0, "max_abs_logit_diff": 0.0, "split_margins": [],
+            "plain_margins": []}
+
+
+def _force_step(torch, got, want, valid, log):
+    """One step's logits, kernel path ``got`` against the plain model's
+    ``want`` on the same inputs ([B, V], or [B, C, V] with ``valid``
+    [B, C]): at each valid position the largest difference and the
+    argmax.  A split (the kernel path's token is not among the plain
+    logits' maxima: where those tie, argmax's first index is one choice of
+    several) is logged with its margin: how far the plain token leads the
+    kernel's in the mean of the two paths' logits, which both round; and
+    the plain logits' own lead, for the record."""
+    if got.dim() == 2:
+        got, want, valid = got[:, None], want[:, None], valid[:, :1]
+    g, w = got.float(), want.float()
+    log["positions"] += int(valid.sum())
+    log["max_abs_logit_diff"] = max(log["max_abs_logit_diff"], float(
+        ((g - w).abs().amax(-1) * valid).max()))
+    picked = torch.gather(w, -1, g.argmax(-1, keepdim=True))[..., 0]
+    for b, c in ((picked < w.amax(-1)) & valid).nonzero().tolist():
+        k, p = int(g[b, c].argmax()), int(w[b, c].argmax())
+        mean = (g[b, c] + w[b, c]) / 2
+        log["split_margins"].append(max(float(mean[p] - mean[k]), 0.0))
+        log["plain_margins"].append(float(w[b, c, p] - w[b, c, k]))
+
+
+def _serve_wave(torch, bd, pa, dev, engine, forced=None, logit_tol=None):
     """The serve traffic through ``engine``'s paged path: the nine prompt
     pages x NEW_TOKENS at once, then a one-token follow-up of the first,
     through ``InferenceImpl.infer`` under the default ServeConfig.  Fails
     unless the three kernels of the path launched, the scheduler took its
     mixed, spec-verify, prefix-hit and copy-on-write paths, and the greedy
     tokens equal a replay through the plain versions under the split rule.
-    Returns (info, token arrays)."""
-    import numpy as np
-    from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
-                                     decode_token_page, encode_prompt_page)
+
+    With ``forced`` (the plain model of an MoE engine) there is no
+    replay.  An MoE step's capacity, and so which tokens drop, depends on
+    how the scheduler composed the step (which prompts' prefixes were
+    cached first, where the chunks start), which a second run need not
+    repeat; and where rounding moves a router input across a top-k
+    boundary, a token takes another expert (a route flip) and its logits
+    move far more than the rounding.  So each step is held to the plain
+    model on the same step inputs, on a copy of the kernel path's own
+    pool (teacher forcing), with the experts the kernel path chose
+    (``_route_forced``): the split rule at every position the step
+    scores, the logits within ``logit_tol`` (``_hold_forced``), and the
+    route flips counted.  Returns (info, token arrays)."""
+    from repro_torch.serving import (InferenceImpl, decode_token_page,
+                                     encode_prompt_page)
 
     cfg = engine.cfg
     widths = []   # (step width, seconds) of every model step in the run
+    log = {**_forced_log(), "route_flips": 0, "token_layers": 0}
+    counters = (bd.decode_columns, bd.decode_column, pa.paged_attention,
+                pa.paged_prefill_attention)
+    impl = None   # the service below, whose batcher composes each step
     for name in ("paged_step", "paged_step_verify"):
         fn = getattr(engine.model, name)
 
-        def run(params, tokens, *args, _fn=fn):
+        def run(params, tokens, pool, *args, _fn=fn,
+                _verify=name == "paged_step_verify"):
+            if forced is not None:
+                walked, want, routes = _route_forced(
+                    torch, engine.model, forced, params, tokens, pool, args,
+                    _verify, (pa.paged_attention, pa.paged_prefill_attention))
             t0 = time.perf_counter()
-            out = _fn(params, tokens, *args)
+            out = _fn(params, tokens, pool, *args)
             torch.cuda.synchronize()   # the batcher syncs here anyway
             widths.append((int(tokens.shape[1]), time.perf_counter() - t0))
+            if forced is not None:
+                # a verify step scores every position up to last_idx; empty
+                # batch slots (an all-null block table) attend the null
+                # block, which the step's padding writes in no fixed order,
+                # and nothing reads their logits
+                tables, last = args[0], args[-1]
+                valid = (tables[:, :1] != 0) & (torch.arange(
+                    tokens.shape[1], device=dev)[None] <= last.long()[:, None])
+                sel = valid if _verify else valid[:, 0]
+                valid &= torch.tensor(_emitting_rows(
+                    impl.batcher, last.tolist()), device=dev)[:, None]
+                if _verify:   # the drafts the step accepts, and its bonus
+                    hit = tokens[:, 1:] == out[0][:, :-1].argmax(-1)
+                    valid[:, 1:] &= torch.cumprod(hit.int(), -1).bool()
+                if not torch.equal(out[0][sel], walked[sel]):
+                    raise AssertionError("the layer walk differs from "
+                                         f"{name}")
+                _force_step(torch, out[0], want, valid, log)
+                log["route_flips"] += _route_flips(*routes, valid)
+                log["token_layers"] += int(valid.sum()) * cfg.num_layers
             return out
         setattr(engine.model, name, run)
     prompts = _prompts(cfg.vocab_size)
@@ -826,8 +937,6 @@ def _serve_wave(torch, bd, pa, dev, engine):
     wave = [(encode_prompt_page(p[None]), NEW_TOKENS) for p in prompts]
     follow = [(encode_prompt_page(prompts[0][None]), 1)]
     impl = InferenceImpl(engine)
-    counters = (bd.decode_columns, bd.decode_column, pa.paged_attention,
-                pa.paged_prefill_attention)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -853,11 +962,107 @@ def _serve_wave(torch, bd, pa, dev, engine):
                 or int(t.max()) >= cfg.vocab_size:
             raise AssertionError(f"bad response {r['batch']}x"
                                  f"{r['new_tokens']} for {n} tokens")
-    # replay through the plain attention, called by name via the config
-    ref = Engine(dataclasses.replace(cfg, attention_impl="reference"),
+    n_tokens = sum(r["new_tokens"] for r in out)
+    if forced is not None:
+        checked = {**_hold_forced(log, logit_tol),
+                   "route_flips": log["route_flips"],
+                   "token_layers": log["token_layers"]}
+    else:
+        splits, worst = _replay_splits(torch, engine, dev, prompts, toks,
+                                       wave + follow)
+        checked = {"tokens_checked": n_tokens,
+                   "splits_within_tolerance": splits,
+                   "largest_split_margin": worst,
+                   "split_margin": SPLIT_MARGIN, "max_splits": MAX_SPLITS}
+    by_width = {}
+    for w, s in widths:
+        by_width.setdefault(w, []).append(s * 1e3)
+    return {"requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall, "launches": launches,
+            # the teacher-forced walks run inside the wave, outside the
+            # steps' timers
+            "wall_includes_forced_walks": forced is not None,
+            "steps": len(widths),
+            "step_ms_by_width": {
+                str(w): {"steps": len(v), "mean_ms": sum(v) / len(v),
+                         "max_ms": max(v)} for w, v in sorted(by_width.items())},
+            "stats": stats, "tokens_vs_plain": checked}, toks
+
+
+def _emitting_rows(batcher, last):
+    """Whether the paged ``batcher`` reads each row's logits in the step
+    it is running: not for an empty slot, nor for a prompt chunk that does
+    not reach the prompt's end.  ``last``: the step's last_idx per row."""
+    rows = []
+    for i, slot in enumerate(batcher._slots):
+        req, r = slot if slot is not None else (None, 0)
+        rows.append(req is not None and r < req.rows and not (
+            req.prefilling and req.pos_next + last[i] + 1 < req.seq_len))
+    return rows
+
+
+def _route_forced(torch, kern, plain, params, tokens, pool, args, verify,
+                  counters):
+    """One paged step of an MoE model for the teacher-forced check: the
+    kernel path walked on a copy of ``pool`` (its logits, which the step
+    itself must repeat bit for bit, and its routes), then the plain model
+    walked on another copy with those routes forced.  The walk's kernel
+    launches are taken back off ``counters`` (the paged kernels': only the
+    batcher's thread launches them, where the page decode of requests
+    arriving meanwhile runs on theirs).  Returns (kernel walk's
+    logits, plain logits, (kernel routes, plain routes))."""
+    saved = [fn.launches for fn in counters]
+    routes_k, routes_p = [], []
+    walked, _ = _walk_paged_step(
+        torch, kern, params, tokens, {k: v.clone() for k, v in pool.items()},
+        *args, routes_k, verify=verify)
+    for fn, n in zip(counters, saved):
+        fn.launches = n
+    want, _ = _walk_paged_step(
+        torch, plain, params, tokens, {k: v.clone() for k, v in pool.items()},
+        *args, routes_p, forced_routes=routes_k, verify=verify)
+    torch.cuda.synchronize()
+    return walked, want, (routes_k, routes_p)
+
+
+def _hold_forced(log, logit_tol):
+    """The teacher-forced comparison ``log`` (``_force_step``): the
+    logits within ``logit_tol`` at every checked position, and an argmax
+    split only at a margin within SPLIT_MARGIN, at most MAX_SPLITS in 24
+    checked tokens (the sampled check's unit, ``_forced_sampled``: every
+    token is checked on its own prefix, where a replay compares a request
+    only up to its first split)."""
+    margins = log["split_margins"]
+    limit = MAX_SPLITS * log["positions"] / 24
+    if log["max_abs_logit_diff"] > logit_tol:
+        raise AssertionError(f"forced steps: logits differ by "
+                             f"{log['max_abs_logit_diff']} (limit "
+                             f"{logit_tol})")
+    if any(m > SPLIT_MARGIN for m in margins) or len(margins) > limit:
+        raise AssertionError(f"forced steps split from the plain model at "
+                             f"margins {margins} (limit {SPLIT_MARGIN}, at "
+                             f"most {limit:g} in {log['positions']} tokens)")
+    return {"positions_checked": log["positions"],
+            "max_abs_logit_diff": log["max_abs_logit_diff"],
+            "logit_tol": logit_tol, "splits_within_tolerance": len(margins),
+            "split_limit": limit, "split_margins": margins,
+            "plain_split_margins": log["plain_margins"],
+            "split_margin": SPLIT_MARGIN}
+
+
+def _replay_splits(torch, engine, dev, prompts, toks, requests):
+    """The wave's greedy tokens against a replay of ``requests`` through
+    the plain attention, called by name via the config: equal, or split
+    where the replay's top-2 margin is within SPLIT_MARGIN, at most
+    MAX_SPLITS requests.  Returns (splits, largest split margin)."""
+    import numpy as np
+    from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
+                                     decode_token_page)
+    ref = Engine(dataclasses.replace(engine.cfg, attention_impl="reference"),
                  ServeConfig(), params=engine.params, device=dev)
     ref_impl = InferenceImpl(ref)
-    ref_out = _drive(ref_impl, wave) + _drive(ref_impl, follow)
+    n = len(PROMPT_LENS)
+    ref_out = _drive(ref_impl, requests[:n]) + _drive(ref_impl, requests[n:])
     ref_impl.close()
     splits, worst = 0, None
     for prompt, a, r in zip(prompts + prompts[:1], toks,
@@ -875,20 +1080,7 @@ def _serve_wave(torch, bd, pa, dev, engine):
     if splits > MAX_SPLITS:
         raise AssertionError(f"{splits} requests split from the plain "
                              f"replay (limit {MAX_SPLITS})")
-    by_width = {}
-    for w, s in widths:
-        by_width.setdefault(w, []).append(s * 1e3)
-    n_tokens = sum(r["new_tokens"] for r in out)
-    return {"requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
-            "tokens_per_s": n_tokens / wall, "launches": launches,
-            "steps": len(widths),
-            "step_ms_by_width": {
-                str(w): {"steps": len(v), "mean_ms": sum(v) / len(v),
-                         "max_ms": max(v)} for w, v in sorted(by_width.items())},
-            "stats": stats, "tokens_vs_plain": {
-                "tokens_checked": n_tokens, "splits_within_tolerance": splits,
-                "largest_split_margin": worst, "split_margin": SPLIT_MARGIN,
-                "max_splits": MAX_SPLITS}}, toks
+    return splits, worst
 
 
 def profile(torch, dev, state):
@@ -2019,10 +2211,11 @@ def _fleet_launcher(src):
 
 def _dense_margin(torch, engine, seq) -> float:
     """Top-2 margin of ``engine``'s logits after ``seq``, from a dense
-    prefill (the replay engine: the plain versions)."""
-    toks = torch.tensor([list(seq)], dtype=torch.int32, device=engine.device)
-    logits, _ = engine.model.prefill(engine.params, {"tokens": toks},
-                                     len(seq))
+    prefill of the engine's own batch for it (the replay engine: the plain
+    versions; the encoder-decoder's zero frames)."""
+    import numpy as np
+    batch = engine._prefill_batch(np.asarray([list(seq)], dtype=np.int32))
+    logits, _ = engine.model.prefill(engine.params, batch, len(seq))
     return _margin(logits[0])
 
 
@@ -2055,17 +2248,31 @@ def _match(torch, ref, prompts, got, want, what):
             "largest_split_margin": worst}
 
 
-def _timed_steps(torch, model, widths):
+def _timed_steps(torch, model, widths, forced=None, log=None):
     """Wrap ``model``'s dense prefill and decode step to record
-    (kind, seconds) of each call, synchronized."""
+    (kind, seconds) of each call, synchronized.  With ``forced`` (the
+    plain model) each call's logits are first computed by it on the same
+    inputs and a copy of the cache, and held to the kernel path's in
+    ``log`` (``_force_step``)."""
     for name in ("prefill", "decode_step"):
         fn = getattr(model, name)
+        ref = None if forced is None else getattr(forced, name)
 
-        def run(*args, _fn=fn, _name=name):
+        def run(*args, _fn=fn, _name=name, _ref=ref):
+            if _ref is not None:
+                ref_args = list(args)
+                if _name == "decode_step":    # params, tokens, cache, pos
+                    ref_args[2] = {k: v.clone() for k, v in args[2].items()}
+                want, _ = _ref(*ref_args)
+                del ref_args
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = _fn(*args)
             torch.cuda.synchronize()   # the engine syncs here anyway
             widths.append((_name, time.perf_counter() - t0))
+            if _ref is not None:
+                _force_step(torch, out[0], want, torch.ones_like(
+                    out[0][:, :1], dtype=torch.bool), log)
             return out
         setattr(model, name, run)
 
@@ -2406,6 +2613,409 @@ def rwkv_serve(torch, bd, rw, dev, state):
             "logit_tol": RWKV_LOGIT_TOL}
 
 
+# -- the other model families ---------------------------------------------------
+
+# Step logits of the MoE models, paged kernels against their plain versions.
+# Where the two paths' router inputs straddle a top-k boundary, a token takes
+# another expert at that layer (a route flip), and its logits then move far
+# more than the attention's rounding alone moves them; the flips are counted
+# beside the difference (``_moe_step_logits``).  Each limit is about twice
+# the largest difference measured on an H100 (PERF.md, section 2):
+# qwen2-moe-a2.7b 0.734 with 706 of 4,080 (layer, token) routes flipped in
+# the mixed step (60 experts, top-4: the router's top-k gaps are small
+# against bf16 rounding); granite-moe-1b-a400m 0.089 with 399 flipped (top-8
+# of 32 experts, each a smaller share of the output).  With the kernel
+# path's routes forced on the plain model the difference is rounding only:
+# granite's (0.035) is within LOGIT_TOL; qwen2-moe's untied unembed gives
+# logits of about twice qwen2's scale, and its difference reached 0.121 in
+# the teacher-forced serve wave, so its limit is about twice that.
+# (arch: unforced measured, unforced limit, forced limit)
+MOE_LIMITS = {"qwen2-moe-a2.7b": (0.734, 1.5, 0.25),
+              "granite-moe-1b-a400m": (0.089, 0.18, LOGIT_TOL)}
+# seamless-m4t-medium's encoder memory from random frames, kernel path
+# against plain (bf16, unit RMS after the encoder's final norm): 0.082
+# measured on an H100, the limit about twice that
+MEMORY_TOL = 0.16
+VLM_TEXT, VLM_GRID = 16, (16, 24)   # qwen2-vl-2b's prompt: text, patches
+ENCDEC_NEW = 16                     # new tokens of each seamless page
+
+
+def _walk_paged_step(torch, model, params, toks, pool, tables, pos, last,
+                     routes, forced_routes=None, verify=False):
+    """``model.paged_step`` (``paged_step_verify`` with ``verify``) of an
+    MoE decoder walked layer by layer with the port's own blocks
+    (``decoder_layer_paged``'s body: attention against the pool, the
+    norms, the router, the expert dispatch), appending each layer's expert
+    ids [B, C, k] to ``routes``.  With ``forced_routes`` (a list of the
+    layers' ids) the FFN takes those experts instead, weighted by this
+    router's own renormalised probabilities of them.  Returns (logits
+    [B, V] at last_idx, or [B, C, V], pool)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import _layer
+    cfg = model.cfg
+    x = L.embed(params, toks, cfg)
+    for i in range(cfg.num_layers):
+        p = _layer(params["layers"], i)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        att, _ = L.attention_paged(p["attn"], h, cfg, pool["k"][i],
+                                   pool["v"][i], tables, pos, last_idx=last)
+        x = x + att
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        probs, weights, idx = M.route(p["moe"], h, cfg)
+        routes.append(idx)
+        if forced_routes is not None:
+            idx = forced_routes[i]
+            weights = torch.gather(probs, -1, idx)
+            weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+        x = x + M.dispatch(p["moe"], h, weights, idx, cfg)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if verify:
+        return L.unembed(params, x, cfg), pool
+    idx = last.long()[:, None, None].expand(-1, 1, x.shape[-1])
+    return L.unembed(params, torch.gather(x, 1, idx), cfg)[:, 0], pool
+
+
+def _route_flips(got, want, valid) -> int:
+    """(layer, valid token) pairs whose chosen expert sets differ between
+    two walks' ``routes``; ``valid`` [B, C]."""
+    return sum(int(((a.sort(-1).values != r.sort(-1).values).any(-1)
+                    & valid).sum()) for a, r in zip(got, want))
+
+
+def _moe_step_logits(torch, cfg, params, models, dev, seed):
+    """``_step_logits`` of an MoE decoder through the layer walk for the
+    models "kernel" and "plain", and for "plain" again with the kernel
+    path's routes forced ("forced"): their logits, and the route flips
+    between kernel and plain, per step: (layer, valid token) pairs whose
+    chosen expert set differs.  The walk must give ``paged_step``'s
+    logits bit for bit, so that what it counts is what the step
+    computes."""
+    n = cfg.num_layers
+    routes = {"kernel": [], "plain": [], "forced": []}
+
+    def walk(name, model, *args):
+        forced = None
+        if name == "forced":   # this step's layers of the kernel walk
+            done = len(routes["forced"])
+            forced = routes["kernel"][done:done + n]
+        return _walk_paged_step(torch, model, *args, routes[name], forced)
+    logits = _step_logits(torch, cfg, params,
+                          {**models, "forced": models["plain"]}, dev, seed,
+                          walk)
+    direct = _step_logits(torch, cfg, params, {"kernel": models["kernel"]},
+                          dev, seed)["kernel"]
+    if not all(torch.equal(a, b) for a, b in zip(direct, logits["kernel"])):
+        raise AssertionError("the layer walk differs from paged_step")
+    adv = torch.tensor(STEP_ADVANCE, device=dev)
+    valid = (torch.arange(32, device=dev)[None] < adv[:, None],
+             torch.ones((len(STEP_ADVANCE), 1), dtype=torch.bool,
+                        device=dev))
+    flips = {step: {"flips": _route_flips(
+        routes["kernel"][j * n:(j + 1) * n],
+        routes["plain"][j * n:(j + 1) * n], valid[j]),
+        "token_layers": int(valid[j].sum()) * n}
+        for j, step in enumerate(("mixed", "decode"))}
+    return logits, flips
+
+
+def _weight_bound_ms(params, cfg) -> float:
+    """Least time a step could take to read the weights once: every
+    parameter but the embedding table's unread rows (an untied table is
+    only gathered) over the card's memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if not cfg.tie_embeddings:
+        nbytes -= params["embed"].numel() * params["embed"].element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _moe_serve_one(torch, bd, pa, dev, arch, seed):
+    """One MoE model at full width on the paged path: its step logits
+    against the plain attention's with the route flips, then the serve
+    phase's traffic and checks (``_serve_wave``), its step time by width
+    beside the per-step weight-read bound."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = get_config(arch)
+    measured, tol, forced_tol = MOE_LIMITS[arch]
+    t0 = time.perf_counter()
+    engine = Engine(cfg, ServeConfig(), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if not engine.supports_paged:
+        raise AssertionError(f"{arch} is not on the paged path")
+    m = cfg.moe
+    info = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "experts": m.num_experts,
+            "shared_experts": m.num_shared, "top_k": m.top_k,
+            "d_expert": m.d_expert, "capacity_factor": m.capacity_factor,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "init_s": init_s,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(engine.params)),
+            "router_dtype": str(engine.params["layers"]["moe"]["router"]
+                                .dtype), "logit_tol": tol,
+            "logit_tol_from_measured": measured,
+            "forced_logit_tol": forced_tol}
+    if engine.params["layers"]["moe"]["router"].dtype != torch.float32:
+        raise AssertionError("the router is not float32")
+    plain = DecoderLM(dataclasses.replace(cfg, attention_impl="reference"))
+    logits, flips = _moe_step_logits(
+        torch, cfg, engine.params, {"kernel": engine.model, "plain": plain},
+        dev, seed)
+    info["route_flips"] = flips
+    info.update(_hold_step_logits(
+        torch, {k: logits[k] for k in ("kernel", "plain")}, tol))
+    # on the kernel path's routes the plain model differs by rounding only
+    info["routes_forced"] = _hold_step_logits(
+        torch, {"kernel": logits["kernel"], "plain": logits["forced"]},
+        forced_tol)
+    wave, _ = _serve_wave(torch, bd, pa, dev, engine, forced=plain,
+                          logit_tol=forced_tol)
+    bound = _weight_bound_ms(engine.params, cfg)
+    wave["weight_bound_ms"] = bound
+    wave["step_ms_over_weight_bound"] = {
+        w: v["mean_ms"] / bound for w, v in wave["step_ms_by_width"].items()}
+    del engine, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**info, **wave}
+
+
+def moe_serve(torch, bd, pa, dev, state):
+    """qwen2-moe-a2.7b at full width (24 layers, d_model 2048, 16 heads of
+    128 over 16 KV heads, 60 routed experts of 1,408 top-4 and 4 shared,
+    vocab 151,936, bf16) on the paged path, then granite-moe-1b-a400m at
+    full width (24 layers, d_model 1024, 16 heads of 64 over 8, 32 experts
+    of 512 top-8, tied embedding, vocab 49,155): the paged D 64 body's
+    first path.  Each: step logits against the plain attention's with the
+    route flips, and the serve phase's traffic (``_moe_serve_one``)."""
+    import gc
+    gc.collect()     # the earlier phases' weights
+    torch.cuda.empty_cache()
+    out = {}
+    for arch, seed, key in (("qwen2-moe-a2.7b", SEED + 13, "moe"),
+                            ("granite-moe-1b-a400m", SEED + 14, "granite")):
+        out[arch] = _moe_serve_one(torch, bd, pa, dev, arch, seed)
+        state[f"{key}_launches"] = out[arch]["launches"]
+    return out
+
+
+def _greedy_vs_plain(torch, kern, plain, params, batch, cache_len, n_new,
+                     tol, what):
+    """``prefill`` and ``n_new`` greedy ``decode_step``s through the kernel
+    path ``kern`` and the plain replay ``plain``, each free running: the
+    logits finite and within ``tol`` while the tokens agree, and the
+    tokens equal or split where the replay's top-2 margin at that step is
+    within SPLIT_MARGIN (a row is compared up to its split).  B 1."""
+    la, ca = kern.prefill(params, batch, cache_len)
+    lr, cr = plain.prefill(params, batch, cache_len)
+    t = batch["positions"].shape[-1] if "positions" in batch \
+        else batch["tokens"].shape[1]
+    worst, split, toks = 0.0, None, []
+    for i in range(n_new + 1):
+        if not bool(torch.isfinite(la).all()):
+            raise AssertionError(f"{what}: non-finite logits at step {i}")
+        if split is None:
+            worst = max(worst, float((la.float() - lr.float()).abs().max()))
+            if int(la[0].argmax()) != int(lr[0].argmax()):
+                margin = _margin(lr[0])
+                if margin > SPLIT_MARGIN:
+                    raise AssertionError(f"{what}: token split at output "
+                                         f"{i} with reference margin "
+                                         f"{margin}")
+                split = {"output": i, "margin": margin}
+        if i == n_new:
+            break
+        ta = la.argmax(-1, keepdim=True).to(torch.int32)
+        tr = lr.argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(int(ta[0, 0]))
+        la, ca = kern.decode_step(params, ta, ca, t + i)
+        lr, cr = plain.decode_step(params, tr, cr, t + i)
+    if worst > tol:
+        raise AssertionError(f"{what}: logits differ by {worst} (limit "
+                             f"{tol})")
+    return {"new_tokens": n_new, "max_abs_logit_diff": worst,
+            "logit_tol": tol, "split": split, "tokens": toks}
+
+
+def vlm_prefill(torch, fa, dev, state):
+    """qwen2-vl-2b at full width (28 layers, d_model 1536, 12 heads of 128
+    over 2, M-RoPE sections (16, 24, 24), tied embedding, bf16) from 400
+    seeded random embeddings: 16 text positions at t = h = w = 0..15, then
+    a 16 x 24 patch grid at t 16, h 16 + row, w 16 + col.  ``prefill``
+    (the flash kernel in every layer), then 32 greedy ``decode_step``s
+    against the plain replay.  There is no ``Engine`` path, as in JAX."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = get_config("qwen2-vl-2b")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plain = get_model(dataclasses.replace(cfg, attention_impl="reference"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    rows, cols = VLM_GRID
+    n = VLM_TEXT + rows * cols
+    pos = torch.empty((3, 1, n), dtype=torch.int32, device=dev)
+    pos[:, 0, :VLM_TEXT] = torch.arange(VLM_TEXT, device=dev)
+    grid = torch.arange(rows * cols, device=dev)
+    pos[0, 0, VLM_TEXT:] = VLM_TEXT
+    pos[1, 0, VLM_TEXT:] = VLM_TEXT + grid // cols
+    pos[2, 0, VLM_TEXT:] = VLM_TEXT + grid % cols
+    batch = {"embeds": torch.randn((1, n, cfg.d_model), generator=gen,
+                                   device=dev), "positions": pos}
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    model.prefill(params, batch, n + NEW_TOKENS)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = fa.flash_attention.launches
+    if launches != cfg.num_layers:
+        raise AssertionError(f"flash attention launched {launches} times in "
+                             f"a prefill of {cfg.num_layers} layers")
+    res = _greedy_vs_plain(torch, model, plain, params, batch,
+                           n + NEW_TOKENS, NEW_TOKENS, LOGIT_TOL,
+                           "vlm vs plain replay")
+    state["vlm_launches"] = launches
+    info = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "mrope_sections": list(cfg.mrope_sections), "dtype": cfg.dtype,
+            "init_s": init_s, "param_bytes": sum(
+                t.numel() * t.element_size() for t in _leaves(params)),
+            "prompt": {"text": VLM_TEXT, "grid": list(VLM_GRID)},
+            "prefill_ms": prefill_ms,
+            "launches": {"flash_attention.flash_attention": launches},
+            **res}
+    del params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def encdec_serve(torch, bd, fa, dev, state):
+    """seamless-m4t-medium at full width (12 + 12 layers, d_model 1024, 16
+    heads of 64, vocab 256,206, bf16): ``prefill`` and 32 greedy
+    ``decode_step``s from seeded random frames [1, 50, 1024] and the
+    400-token prompt against the plain replay (memory, logits, tokens);
+    then the nine prompt pages x 16 tokens through ``InferenceImpl`` (the
+    ``ContinuousBatcher``: the stub frontend's zero frames), each prefill
+    and decode step held to the plain model on the same inputs and a copy
+    of the cache (``_timed_steps(forced=...)``), and ``score_page``.  The flash kernel runs the encoder, the decoder's
+    prefill and every cross-attention (12 launches a decode step)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serving import (ContinuousBatcher, Engine,
+                                     InferenceImpl, ServeConfig,
+                                     encode_prompt_page)
+    cfg = get_config("seamless-m4t-medium")
+    t0 = time.perf_counter()
+    engine = Engine(cfg, ServeConfig(), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if engine.supports_paged:
+        raise AssertionError("the encoder-decoder has no paged path")
+    params = engine.params
+    ref = Engine(dataclasses.replace(cfg, attention_impl="reference"),
+                 ServeConfig(), params=params, device=dev)
+    prompts = _prompts(cfg.vocab_size)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    frames = torch.randn((1, SEAMLESS_FRAMES, cfg.d_model), generator=gen,
+                         device=dev)
+    batch = {"frames": frames, "tokens": torch.tensor(
+        prompts[-1][None], dtype=torch.int32, device=dev)}
+    fa.flash_attention.launches = 0
+    mem = engine.model.encode(params, frames)
+    mem_err = float((mem.float() - ref.model.encode(params, frames).float())
+                    .abs().max())
+    if mem_err > MEMORY_TOL or not bool(torch.isfinite(mem).all()):
+        raise AssertionError(f"encoder memory differs by {mem_err} (limit "
+                             f"{MEMORY_TOL})")
+    frames_run = _greedy_vs_plain(
+        torch, engine.model, ref.model, params, batch, ServeConfig().cache_len,
+        NEW_TOKENS, LOGIT_TOL, "encdec (random frames) vs plain replay")
+    frames_launches = fa.flash_attention.launches
+    # encode: 12; prefill: 12 encoder + 12 self + 12 cross; 12 a step
+    n = cfg.num_layers
+    want = cfg.encoder_layers * 2 + 2 * n + NEW_TOKENS * n
+    if frames_launches != want:
+        raise AssertionError(f"flash attention launched {frames_launches} "
+                             f"times, not {want}")
+    # the served path: zero frames, the dense batcher
+    wave = [(encode_prompt_page(p[None]), ENCDEC_NEW) for p in prompts]
+    rng = np.random.default_rng(SEED + 17)
+    score_page = encode_prompt_page(rng.integers(0, cfg.vocab_size, (2, 64)))
+    impl = InferenceImpl(engine)
+    if not isinstance(impl.batcher, ContinuousBatcher):
+        raise AssertionError(f"seamless got {type(impl.batcher)}")
+    widths = []
+    log = _forced_log()
+    _timed_steps(torch, engine.model, widths, forced=ref.model, log=log)
+    fa.flash_attention.launches = 0
+    bd.decode_columns.launches = 0
+    t0 = time.perf_counter()
+    out = _drive(impl, wave)
+    wall = time.perf_counter() - t0
+    scores = impl.score_page(score_page)["scores"]
+    launches = {"flash_attention.flash_attention":
+                fa.flash_attention.launches,
+                "bebop_decode.decode_columns": bd.decode_columns.launches}
+    impl.close()
+    stats = dict(engine.stats)
+    # each prefill and the score's logits: the encoder, the decoder's self-
+    # and cross-attention (36); each decode step its cross-attention (12)
+    want = (cfg.encoder_layers + 2 * n) * (stats["prefills"] + 1) \
+        + n * stats["decode_steps"]
+    if launches["flash_attention.flash_attention"] != want:
+        raise AssertionError(f"flash attention launched {launches} times, "
+                             f"not {want} ({stats})")
+    if launches["bebop_decode.decode_columns"] != len(wave) + 1:
+        raise AssertionError(f"decode_columns launched for "
+                             f"{len(wave) + 1} pages: {launches}")
+    toks = _tokens(out)
+    for t, (_, k) in zip(toks, wave):
+        if t.shape != (1, k) or int(t.max()) >= cfg.vocab_size:
+            raise AssertionError(f"bad response {t.shape} for {k} tokens")
+    ref_impl = InferenceImpl(ref)
+    ref_scores = ref_impl.score_page(score_page)["scores"]
+    ref_impl.close()
+    vs_plain = _hold_forced(log, LOGIT_TOL)
+    if scores.shape != (2,) or not np.isfinite(scores).all() \
+            or float(np.abs(scores - ref_scores).max()) > SCORE_TOL:
+        raise AssertionError(f"scores {scores} vs plain {ref_scores}")
+    n_tokens = sum(t.size for t in toks)
+    state["encdec_launches"] = launches["flash_attention.flash_attention"]
+    info = {"encoder_layers": cfg.encoder_layers, "decoder_layers": n,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+            "dtype": cfg.dtype, "init_s": init_s,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params)),
+            "random_frames": {"frames": SEAMLESS_FRAMES,
+                              "prompt": len(prompts[-1]),
+                              "memory_max_abs_diff": mem_err,
+                              "memory_tol": MEMORY_TOL,
+                              "flash_launches": frames_launches,
+                              **frames_run},
+            "requests": len(out), "tokens_out": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall, "launches": launches,
+            "steps": _step_summary(widths), "engine_stats": stats,
+            "tokens_vs_plain": vs_plain, "scores": scores.tolist(),
+            "plain_scores": ref_scores.tolist(), "score_tol": SCORE_TOL}
+    del engine, ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
 # -- timing ------------------------------------------------------------------
 
 
@@ -2658,38 +3268,46 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
                                    "library_ms", "shape")}})
     extra.update(rows)
     # flash attention at qwen2-1.5b's longest served prefill (B 1, T 400)
-    # and, as an extra row, recurrentgemma-9b's long prompt (T 2000)
-    for name, (hq, hkv, d, t, window) in FLASH_FULL.items():
-        q = torch.randn((1, hq, t, d), generator=gen,
+    # and, as extra rows, the other FLASH_FULL calls
+    on_path = {"recurrentgemma": ("launches_on_hybrid_path",
+                                  state["hybrid_launches"][
+                                      "flash_attention.flash_attention"]),
+               "seamless": ("launches_on_encdec_path",
+                            state["encdec_launches"]),
+               "seamless_cross": ("launches_on_encdec_path",
+                                  state["encdec_launches"])}
+    for name, (hq, hkv, d, tq, s, causal, window) in FLASH_FULL.items():
+        q = torch.randn((1, hq, tq, d), generator=gen,
                         device=dev).to(torch.bfloat16)
-        k = torch.randn((1, hkv, t, d), generator=gen,
+        k = torch.randn((1, hkv, s, d), generator=gen,
                         device=dev).to(torch.bfloat16)
-        v = torch.randn((1, hkv, t, d), generator=gen,
+        v = torch.randn((1, hkv, s, d), generator=gen,
                         device=dev).to(torch.bfloat16)
-        pairs = _causal_pairs(t, window)
-        bound, by = _flash_bound(1, hq, hkv, t, t, d, pairs)
+        pairs = _causal_pairs(tq, window) if causal else tq * s
+        bound, by = _flash_bound(1, hq, hkv, tq, s, d, pairs)
         entry = {
             "ms": _cold_ms(torch, lambda: fa.flash_attention(
-                q, k, v, window=window), flush),
+                q, k, v, causal=causal, window=window), flush),
             "plain_ms": _cold_ms(torch, lambda: fa.flash_attention_plain(
-                q, k, v, window=window), flush),
+                q, k, v, causal=causal, window=window), flush),
             "bound_ms": bound, "bound_by": by,
             # yardstick only, the port never calls it: the same function
-            # here (Tq == S, q_offset 0, the window wider than T)
+            # here (Tq == S where causal, q_offset 0, the window wider
+            # than T)
             "library_ms": _cold_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), flush),
-            "shape": f"B 1, Hq {hq}, Hkv {hkv}, D {d}, T {t}, causal, "
+                    q, k, v, is_causal=causal, enable_gqa=True), flush),
+            "shape": f"B 1, Hq {hq}, Hkv {hkv}, D {d}, Tq {tq}, S {s}, "
+                     f"{'causal' if causal else 'non-causal'}, "
                      f"window {window}, bf16"}
         # the function's flops (4 D a pair) over each call's time
         flops = _flash_flops(1, hq, d, pairs)
         entry["tflops"] = flops / entry["ms"] / 1e9
         entry["library_tflops"] = flops / entry["library_ms"] / 1e9
         if name != "qwen2":
-            if name == "recurrentgemma":
-                entry["launches_on_hybrid_path"] = state["hybrid_launches"][
-                    "flash_attention.flash_attention"]
-            extra[f"flash_attention@{name}_T{t}"] = entry
+            if name in on_path:
+                entry[on_path[name][0]] = on_path[name][1]
+            extra[f"flash_attention@{_flash_tag(name, tq, s)}"] = entry
             continue
         kernels.append({
             "name": "flash_attention.flash_attention", "route": "cuda",
@@ -2714,13 +3332,17 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
         "max_abs_err": state["rwkv_kernel"]["bf16_o_max_abs_err"],
         **scans.pop("rwkv6_scan")})
     extra.update(scans)
-    # the same rows at gemma-2b's heads, with gemma_serve's launches
-    for key, row in _paged_rows(torch, pa, dev, gen, flush,
-                                GEMMA_HEADS).items():
-        fn, _, t = key.partition("@")
-        row["launches_on_gemma_path"] = state["gemma_launches"][
-            f"paged_attention.{fn}"]
-        extra[f"{fn}@gemma" + (f"_{t}" if t else "")] = row
+    # the same rows at gemma-2b's, qwen2-moe-a2.7b's and
+    # granite-moe-1b-a400m's heads, with the launches of their paths
+    for tag, heads, path in (("gemma", GEMMA_HEADS, "gemma"),
+                             ("qwen2_moe", QMOE_HEADS, "moe"),
+                             ("granite_moe", GRANITE_HEADS, "granite")):
+        for key, row in _paged_rows(torch, pa, dev, gen, flush,
+                                    heads).items():
+            fn, _, t = key.partition("@")
+            row[f"launches_on_{path}_path"] = state[f"{path}_launches"][
+                f"paged_attention.{fn}"]
+            extra[f"{fn}@{tag}" + (f"_{t}" if t else "")] = row
     state["kernels"] = kernels
     return {"card": state["smi"], "extra": extra}
 

@@ -5,7 +5,10 @@ The port keeps the JAX params tree exactly (``embed``, ``final_norm``,
 w_up, w_down}}``, stacked ``[L, ...]``; RWKV6's ``lm_head`` and
 ``layers/{ln1_s, ln1_b, ln2_s, ln2_b, mu_x, mu, lora_A, lora_B, wr, wk,
 wv, wg, wo, w0, wdecay_A, wdecay_B, u, gn_s, gn_b, mu_ck, mu_cr, wck,
-wcv, wcr}``; the hybrid model's ``supers`` and ``tail``), so the map is
+wcv, wcr}``; MoE layers' ``moe/{router, w_gate, w_up, w_down,
+shared/{w_gate, w_up, w_down}}`` in place of ``mlp``; the hybrid model's
+``supers`` and ``tail``; the encoder-decoder's ``encoder``, ``decoder``
+(with ``ln_x`` and ``xattn/{wq, wk, wv, wo}``) and ``enc_norm``), so the map is
 the identity on names: ``np.asarray`` each
 leaf of a JAX params tree (or take the arrays ``checkpoint/format.py``'s
 ``flatten_tree`` yields, nested back by their ``/`` paths) and hand the
@@ -20,10 +23,12 @@ import torch
 
 #: leaves the JAX init keeps in float32 whatever the model dtype: the
 #: RG-LRU's Lambda (``models/rglru.py``), from which the decay
-#: ``a = exp(-8 softplus(Lambda) r)`` is computed in float32.  RWKV6's
+#: ``a = exp(-8 softplus(Lambda) r)`` is computed in float32, and the MoE
+#: router (``models/moe.py``), whose logits are computed in float32, so a
+#: rounded router would move expert choices.  RWKV6's
 #: ``w0`` and ``u`` are not among them: JAX keeps them in the model dtype
 #: and casts them to float32 where the decay and the bonus are computed.
-FLOAT32_LEAVES = frozenset({"lam"})
+FLOAT32_LEAVES = frozenset({"lam", "router"})
 
 
 def params_from_numpy(tree: Mapping[str, Any], *, device,

@@ -10,7 +10,10 @@
 // (g = 16 query heads per KV head, D 256, window 2048) that is 32.7 GFLOP
 // against 35 MB: bound by operations on the bf16 tensor cores.  At
 // qwen2-1.5b's 400-token prefill (g = 6, D 128) it is 0.49 GFLOP against
-// 2.9 MB: bound by bytes, by a small margin.
+// 2.9 MB: bound by bytes, by a small margin.  At seamless-m4t-medium's
+// heads (MHA, g = 1, D 64) its 400-token causal decoder prefill is 0.33
+// GFLOP against 3.3 MB, and its cross-attention over 50 frames (Tq 400,
+// S 50) 0.08 GFLOP against 1.8 MB: both bound by bytes.
 //
 // bf16 design (tensor cores, mma.sync): one CTA of 4 warps per (tile of
 // kRows = 64 folded query rows, KV head, batch row), 16 rows a warp.
@@ -20,20 +23,22 @@
 // and window limits.  The CTA walks only the KV tiles that can reach its
 // rows (the TPU kernel's pl.when skip, here as loop bounds); a warp masks
 // in registers only the tiles that cross its rows' limits or the ragged
-// end of S, so any Tq, S and q_offset work.  Tiles of K and V (64 keys
-// at D 128, 32 at D 256) are staged in bf16 in shared memory by 16-byte
+// end of S, so any Tq, S and q_offset work.  Under MHA (g = 1) a tile's
+// 64 rows are 64 tokens of one head.  Tiles of K and V (64 keys at D 64
+// and 128, 32 at D 256) are staged in bf16 in shared memory by 16-byte
 // cp.async copies, double-buffered (tile i + 1 is in flight while tile i
 // is computed); rows are padded by 16 bytes so the eight row addresses
 // of every ldmatrix fall in distinct banks.  Q is staged once per CTA, unscaled:
-// at D 128 each warp holds its 16 rows as mma A-fragments in registers;
+// at D 64 and 128 each warp holds its 16 rows as mma A-fragments in
+// registers;
 // at D 256 those would take 64 more registers a thread and spill, so the
 // fragments are read from shared memory by ldmatrix on every tile.
 // S = Q K^T runs as mma.sync m16n8k16 bf16 x bf16 with f32 accumulators
 // (K fragments by ldmatrix from key rows; bf16 products are exact in f32,
 // so this is the TPU's f32 dot up to summation order), and scale is
 // applied to the f32 scores.  The TPU kernel scales q before the dot:
-// that is the same number at D 256 (scale 1/16, exact) and one rounding
-// apart at D 128.  The online softmax runs in f32 on the accumulator
+// that is the same number at D 64 and 256 (scale 1/8 and 1/16, exact) and
+// one rounding apart at D 128.  The online softmax runs in f32 on the accumulator
 // fragments (exp2 of the log2(e)-scaled scores); a row's max and sum are
 // reduced over the 4 lanes that hold it by shuffles.  P reuses the S
 // accumulator layout as the A-fragment of the PV product, split in f32
@@ -472,7 +477,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// keys a K/V tile of the bf16 kernel holds, by head_dim
+// keys a K/V tile of the bf16 kernel holds, by head_dim: at D 64 the
+// output accumulator is half D 128's, so 64-key tiles fit with room to
+// spare (ptxas's report is in the build log; a spill fails the build)
+constexpr int kKeysD64 = 64;
 constexpr int kKeysD128 = 64;
 constexpr int kKeysD256 = 32;
 
@@ -480,6 +488,9 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int b,
              int hq, int hkv, int tq, int s_len, int d, int causal,
              int window, int q_offset, float scale, void* stream) {
+  if (d == 64)
+    return launch<T, 64>(q, k, v, out, b, hq, hkv, tq, s_len, causal,
+                         window, q_offset, scale, stream);
   if (d == 128)
     return launch<T, 128>(q, k, v, out, b, hq, hkv, tq, s_len, causal,
                           window, q_offset, scale, stream);
@@ -492,7 +503,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q/out [B, Hq, Tq, D], k/v
-// [B, Hkv, S, D], contiguous and 16-byte aligned; D 128 or 256.  Query t
+// [B, Hkv, S, D], contiguous and 16-byte aligned; D 64, 128 or 256.  Query t
 // sits at absolute position t + q_offset; key s reaches it iff
 // (!causal || s <= pos) && (window < 0 || pos - s < window).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
@@ -510,6 +521,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, b, hq, hkv, tq, s_len, d, causal,
                            window, q_offset, scale, stream);
+  if (dtype == 1 && d == 64)
+    return tc::launch<64, kKeysD64>(q, k, v, out, b, hq, hkv, tq, s_len,
+                                    causal, window, q_offset, scale, stream);
   if (dtype == 1 && d == 128)
     return tc::launch<128, kKeysD128>(q, k, v, out, b, hq, hkv, tq, s_len,
                                       causal, window, q_offset, scale, stream);

@@ -11,7 +11,8 @@ the mean of V for such a row where it processes the masked block, and
 the port follows the reference (``ROADMAP.md``, Queue 3).
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-tensors (float32 or bfloat16, head_dim 128 or 256, any ``Tq`` and ``S``)
+tensors (float32 or bfloat16, head_dim 64, 128 or 256, any ``Tq`` and
+``S``)
 and runs :func:`flash_attention_plain` for CPU tensors.
 """
 from __future__ import annotations
@@ -24,8 +25,9 @@ import torch
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for (qwen2-1.5b, recurrentgemma-9b)
-KERNEL_HEAD_DIMS = (128, 256)
+#: head dims the kernel is instantiated for (seamless-m4t-medium; qwen2-1.5b,
+#: qwen2-vl-2b; recurrentgemma-9b)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Models ported so far: the decoder (dense GQA layers, paged and dense
-serving; RWKV6 layers, dense serving) and the hybrid RecurrentGemma model
-(dense serving)."""
-from .transformer import DecoderLM, HybridLM, get_model  # noqa: F401
+"""Models: the decoder (dense or MoE GQA layers from tokens, paged and
+dense serving; from embeddings with M-RoPE, dense serving; RWKV6 layers,
+dense serving), the hybrid RecurrentGemma model and the encoder-decoder
+Seamless backbone (dense serving)."""
+from .transformer import DecoderLM, EncDecLM, HybridLM, get_model  # noqa: F401

@@ -1,6 +1,7 @@
-"""Model building blocks: norms, RoPE, GQA attention (full-sequence,
-dense prefill and cached decode, and against the paged block pool),
-SwiGLU/GeGLU MLP, embed and unembed, and the seeded initializer.
+"""Model building blocks: norms, RoPE and M-RoPE, GQA attention
+(full-sequence, dense prefill and cached decode, and against the paged
+block pool), cross-attention, SwiGLU/GeGLU MLP, embed and unembed, and the
+seeded initializer.
 
 Functions on tensors with parameters in plain dicts, as in the JAX
 package's ``models/layers.py``; layer parameters are stacked ``[L, ...]``
@@ -24,10 +25,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-_MROPE_TODO = ("M-RoPE (qwen2-vl) is not ported yet (ROADMAP.md, Queue 1: "
-               "other model families)")
-
-
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
@@ -48,10 +45,11 @@ class Initializer:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 
-    def normal(self, shape: Sequence[int], std: float) -> torch.Tensor:
+    def normal(self, shape: Sequence[int], std: float,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         return (torch.randn(tuple(shape), generator=self.gen,
                             device=self.device, dtype=torch.float32)
-                * std).to(self.dtype)
+                * std).to(dtype or self.dtype)
 
     def stacked(self, n: Optional[int], draw) -> torch.Tensor:
         """``draw()`` once (``n`` None) or ``n`` times into one stacked
@@ -66,9 +64,10 @@ class Initializer:
             out[i] = draw()
         return out
 
-    def dense(self, n: Optional[int], d_in: int, d_out: int) -> torch.Tensor:
+    def dense(self, n: Optional[int], d_in: int, d_out: int,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         return self.stacked(n, lambda: self.normal((d_in, d_out),
-                                                   d_in ** -0.5))
+                                                   d_in ** -0.5, dtype))
 
     def uniform(self, n: Optional[int], shape: Sequence[int], lo: float,
                 hi: float) -> torch.Tensor:
@@ -96,6 +95,34 @@ class Initializer:
         if cfg.qkv_bias:
             p.update(bq=self.zeros(n, cfg.q_dim), bk=self.zeros(n, cfg.kv_dim),
                      bv=self.zeros(n, cfg.kv_dim))
+        return p
+
+    def cross_attention(self, n: Optional[int], cfg: ModelConfig) -> Params:
+        """The encoder-decoder's cross-attention: no biases."""
+        return {"wq": self.dense(n, cfg.d_model, cfg.q_dim),
+                "wk": self.dense(n, cfg.d_model, cfg.kv_dim),
+                "wv": self.dense(n, cfg.d_model, cfg.kv_dim),
+                "wo": self.dense(n, cfg.q_dim, cfg.d_model)}
+
+    def moe(self, n: Optional[int], cfg: ModelConfig) -> Params:
+        """Stacked experts ``[E, d, fe]`` / ``[E, fe, d]`` with the dense
+        scales, the float32 router ``[d, E]`` (float32 at any model dtype,
+        as in JAX), and the shared experts as one ``fe * num_shared``-wide
+        MLP."""
+        m, d = cfg.moe, cfg.d_model
+        fe, e = m.d_expert, m.num_experts
+        p = {"router": self.dense(n, d, e, torch.float32),
+             "w_gate": self.stacked(n, lambda: self.normal((e, d, fe),
+                                                           d ** -0.5)),
+             "w_up": self.stacked(n, lambda: self.normal((e, d, fe),
+                                                         d ** -0.5)),
+             "w_down": self.stacked(n, lambda: self.normal((e, fe, d),
+                                                           fe ** -0.5))}
+        if m.num_shared:
+            fs = fe * m.num_shared
+            p["shared"] = {"w_gate": self.dense(n, d, fs),
+                           "w_up": self.dense(n, d, fs),
+                           "w_down": self.dense(n, fs, d)}
         return p
 
     def mlp(self, n: Optional[int], cfg: ModelConfig) -> Params:
@@ -157,6 +184,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: three position axes (t, h, w) over head_dim
+    sections.  x: [B, H, T, hd]; positions3: [3, B, T].  ``sections``
+    partitions the hd/2 frequencies; section i rotates by
+    ``positions3[i]``."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim {hd} // 2")
+    freqs = _rope_freqs(hd, theta, x.device)                   # [hd/2]
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))               # [hd/2]
+    pos = positions3[sec_id]                                   # [hd/2,B,T]
+    angles = pos.permute(1, 2, 0).float() * freqs              # [B,T,hd/2]
+    cos, sin = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     b, t, _ = x.shape
     q = x @ p["wq"]
@@ -174,8 +223,12 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def _pos_embed(q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor):
+    """RoPE at positions [B, T], or M-RoPE at positions [3, B, T]."""
     if cfg.mrope:
-        raise NotImplementedError(_MROPE_TODO)
+        return (apply_mrope(q, positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta,
+                            cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -269,6 +322,8 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     b, t, _ = x.shape
     q, k_new, v_new = _project_qkv(p, x, cfg)
     bpos = torch.full((b, t), pos, dtype=torch.int64, device=x.device)
+    if cfg.mrope:   # every axis at pos, as in JAX
+        bpos = bpos.expand(3, b, t)
     q, k_new = _pos_embed(q, k_new, cfg, bpos)
     k, v = cache["k"], cache["v"]
     s = k.shape[2]
@@ -355,6 +410,23 @@ def attention_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
                             impl=cfg.attention_impl)
     o = o.to(x.dtype).transpose(1, 2).reshape(b, c, cfg.q_dim)
     return o @ p["wo"], (k_pool, v_pool)
+
+
+def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Non-causal attention of decoder states x [B, T, D] over the encoder
+    memory [B, S, D] (no position embedding, no biases)."""
+    b, t, _ = x.shape
+    s = memory.shape[1]
+    q = (x @ p["wq"]).reshape(b, t, cfg.num_heads, cfg.head_dim) \
+        .transpose(1, 2)
+    k = (memory @ p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim) \
+        .transpose(1, 2)
+    v = (memory @ p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim) \
+        .transpose(1, 2)
+    o = _attend(q, k, v, cfg, causal=False, window=None)
+    o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
+    return o @ p["wo"]
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -1,18 +1,24 @@
-"""Model assembly: the decoder LM (dense GQA layers with paged serving,
-dense prefill and decode and full-sequence logits; or RWKV6 layers with
-dense serving and logits) and the hybrid LM (RecurrentGemma).
+"""Model assembly: the decoder LM (GQA layers with a dense or an MoE FFN,
+token or embedding (M-RoPE) inputs, paged serving, dense prefill and
+decode and full-sequence logits; or RWKV6 layers with dense serving and
+logits), the hybrid LM (RecurrentGemma) and the encoder-decoder LM
+(the Seamless backbone).
 
 The JAX package stacks layer parameters ``[L, ...]`` and consumes them
 with ``jax.lax.scan``; here a Python loop over layers takes the place of
 the scan and each layer's parameters are views into the same stacked
 tensors, so the parameter trees are the JAX ones unchanged:
 ``embed``, ``final_norm``, ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, bq,
-bk, bv}, mlp/{w_gate, w_up, w_down}}`` for the decoder; ``layers/{ln1_s,
+bk, bv}, mlp/{w_gate, w_up, w_down}}`` for the decoder (``moe/{router,
+w_gate, w_up, w_down, shared}`` in place of ``mlp`` for MoE); ``layers/{ln1_s,
 ln1_b, mu_x, mu, lora_A, lora_B, wr, wk, wv, wg, wo, w0, wdecay_A,
 wdecay_B, u, gn_s, gn_b, ln2_s, ln2_b, mu_ck, mu_cr, wck, wcv, wcr}`` for
 RWKV6 (``lm_head`` untied); ``supers/b{i}`` (stacked over super-blocks)
-and ``tail/t{i}`` for the hybrid.  Caches keep the JAX layout too
-(``k``/``v`` ``[L, B, Hkv, S, hd]``; RWKV6 ``shift_t``/``shift_c``
+and ``tail/t{i}`` for the hybrid; ``encoder/{ln1, ln2, attn, mlp}``,
+``decoder/{ln1, ln_x, ln2, attn, xattn, mlp}`` and ``enc_norm`` for the
+encoder-decoder.  Caches keep the JAX layout too (``k``/``v``
+``[L, B, Hkv, S, hd]``, and the encoder ``memory`` ``[B, S_mem, D]``
+beside them for the encoder-decoder; RWKV6 ``shift_t``/``shift_c``
 ``[L, B, 1, D]`` and ``wkv`` ``[L, B, H, K, V]``); decode updates them in
 place where JAX returns a new cache.
 """
@@ -24,13 +30,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import moe as M
 from . import rglru as R
 from . import rwkv6 as W
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
-
-_FAMILY_TODO = "is not ported yet (ROADMAP.md, Queue 1: other model families)"
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -56,15 +61,24 @@ def _window(cfg: ModelConfig):
     return cfg.window if cfg.attention_kind == "local" else None
 
 
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig):
+    """The layer's FFN on its normed input: (out, aux loss) — the MoE
+    FFN's, or the dense MLP's with aux 0."""
+    if cfg.moe is not None:
+        return M.moe_ffn(p["moe"], h, cfg)
+    return L.mlp(p["mlp"], h, cfg), 0.0
+
+
 def decoder_layer_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        positions: torch.Tensor):
+    """Returns (x, aux loss)."""
     if cfg.rwkv:
-        return W.rwkv_block(p, x, cfg)[0]
+        return W.rwkv_block(p, x, cfg)[0], 0.0
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + L.attention_train(p["attn"], h, cfg, positions,
                               window=_window(cfg))
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg)
+    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, aux
 
 
 def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -75,8 +89,8 @@ def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     att, kv = L.attention_prefill(p["attn"], h, cfg, positions, cache_len,
                                   window=_window(cfg))
     x = x + att
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg), kv
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, kv
 
 
 def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -90,8 +104,8 @@ def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     att, kv = L.attention_decode(p["attn"], h, cfg, cache, pos,
                                  window=_window(cfg))
     x = x + att
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg), kv
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, kv
 
 
 def decoder_layer_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -105,16 +119,18 @@ def decoder_layer_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                    block_tables, positions,
                                    last_idx=last_idx)
     x = x + att
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg), pools
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, pools
 
 
 class DecoderLM:
-    """Decoder-only LM over homogeneous layers: dense GQA (paged serving
-    steps, dense prefill and decode against a ``[L, B, Hkv, S, hd]``
-    cache, full-sequence logits) or RWKV6 (dense prefill and decode
-    against the stacked recurrent state, full-sequence logits).  MoE and
-    non-token inputs raise."""
+    """Decoder-only LM over homogeneous layers: GQA with a dense or an MoE
+    FFN (paged serving steps, dense prefill and decode against a
+    ``[L, B, Hkv, S, hd]`` cache, full-sequence logits), from tokens or,
+    for ``input_kind="embeddings"`` (qwen2-vl), from ``batch["embeds"]``
+    with M-RoPE positions ``batch["positions"]`` [3, B, T] (decode steps
+    embed token ids, as in JAX); or RWKV6 (dense prefill and decode
+    against the stacked recurrent state, full-sequence logits)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -132,34 +148,39 @@ class DecoderLM:
         else:
             p["layers"] = {"ln1": init.ones(n, cfg.d_model),
                            "ln2": init.ones(n, cfg.d_model),
-                           "attn": init.attention(n, cfg),
-                           "mlp": init.mlp(n, cfg)}
+                           "attn": init.attention(n, cfg)}
+            if cfg.moe is not None:
+                p["layers"]["moe"] = init.moe(n, cfg)
+            else:
+                p["layers"]["mlp"] = init.mlp(n, cfg)
         p["final_norm"] = init.ones(None, cfg.d_model)
         return p
 
-    def _check_dense(self) -> None:
-        """The families this class does not serve yet raise here."""
+    def _inputs(self, params: Params, batch: Batch):
+        """(x [B, T, D], positions): the embeddings and their [3, B, T]
+        positions as given, or the embedded tokens at 0..T-1 (on all three
+        axes under M-RoPE)."""
         cfg = self.cfg
-        if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MoE {_FAMILY_TODO}")
-        if cfg.input_kind != "tokens":
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.input_kind} inputs {_FAMILY_TODO}")
+        if cfg.input_kind == "embeddings":
+            return batch["embeds"].to(L.dtype_of(cfg)), batch["positions"]
+        tokens = batch["tokens"]
+        positions = _positions(tokens)
+        if cfg.mrope:
+            positions = positions.expand(3, *positions.shape)
+        return L.embed(params, tokens, cfg), positions
 
     # -- full sequence (scoring) -------------------------------------------------
-    def forward(self, params: Params, batch: Batch
-                ) -> Tuple[torch.Tensor, float]:
+    def forward(self, params: Params, batch: Batch):
         """Final hidden states [B, T, D] over whole sequences, and the
-        auxiliary loss (0: no MoE here)."""
-        self._check_dense()
+        auxiliary loss summed over layers (0 without MoE)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = L.embed(params, tokens, cfg)
-        positions = _positions(tokens)
+        x, positions = self._inputs(params, batch)
+        aux = 0.0
         for i in range(cfg.num_layers):
-            x = decoder_layer_train(_layer(params["layers"], i), x, cfg,
-                                    positions)
-        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+            x, a = decoder_layer_train(_layer(params["layers"], i), x, cfg,
+                                       positions)
+            aux = aux + a
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def logits(self, params: Params, batch: Batch) -> torch.Tensor:
         x, _ = self.forward(params, batch)
@@ -178,13 +199,11 @@ class DecoderLM:
                 "v": torch.zeros(shape, dtype=L.dtype_of(cfg), device=device)}
 
     def prefill(self, params: Params, batch: Batch, cache_len: int):
-        """tokens [B, T] -> (logits [B, V] after the last token, cache);
-        an RWKV6 cache is the stacked state after the last token."""
-        self._check_dense()
+        """tokens [B, T] (or embeds and positions) -> (logits [B, V] after
+        the last token, cache); an RWKV6 cache is the stacked state after
+        the last token."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = L.embed(params, tokens, cfg)
-        positions = _positions(tokens)
+        x, positions = self._inputs(params, batch)
         caches = []
         for i in range(cfg.num_layers):
             x, kv = decoder_layer_prefill(_layer(params["layers"], i), x, cfg,
@@ -196,9 +215,10 @@ class DecoderLM:
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache,
                     pos: int):
-        """tokens: [B, 1]; pos: absolute position (host int, unused by
-        RWKV6).  Returns (logits [B, V], cache updated in place)."""
-        self._check_dense()
+        """tokens: [B, 1] ids (embedded for every input kind, as in JAX);
+        pos: absolute position (host int, unused by RWKV6; on all three
+        axes under M-RoPE).  Returns (logits [B, V], cache updated in
+        place)."""
         cfg = self.cfg
         x = L.embed(params, tokens, cfg)
         for i in range(cfg.num_layers):
@@ -210,12 +230,12 @@ class DecoderLM:
     # -- paged serving ----------------------------------------------------------
     @property
     def supports_paged(self) -> bool:
-        """Paged KV is wired for the standard GQA decoder stack: token
-        inputs, global attention, standard RoPE, dense MLP."""
+        """Paged KV is wired for the standard GQA decoder stack (dense or
+        MoE FFN): token inputs, global attention, standard RoPE — the JAX
+        package's rule, term for term."""
         cfg = self.cfg
         return (cfg.input_kind == "tokens" and not cfg.rwkv
-                and cfg.attention_kind == "global" and not cfg.mrope
-                and cfg.moe is None)
+                and cfg.attention_kind == "global" and not cfg.mrope)
 
     def init_paged_pool(self, num_blocks: int, block_size: int,
                         device: torch.device) -> Dict[str, torch.Tensor]:
@@ -428,10 +448,136 @@ class HybridLM:
         return L.unembed(params, x, cfg)[:, 0], cache
 
 
+class EncDecLM:
+    """Encoder-decoder LM (the Seamless backbone): a non-causal encoder
+    over frame embeddings ``batch["frames"]`` [B, S, D], and a token
+    decoder whose layers add cross-attention over the encoder's output
+    (the memory).  Served by the dense engine only; the memory rides in
+    the cache beside the decoder's K/V."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    # -- params ---------------------------------------------------------------
+    def init(self, seed: int, device: torch.device) -> Params:
+        """Random parameters from a seeded ``torch.Generator`` on
+        ``device``."""
+        cfg = self.cfg
+        init = L.Initializer(seed, device, L.dtype_of(cfg))
+        ne, nd, d = cfg.encoder_layers, cfg.num_layers, cfg.d_model
+        p: Params = init.embedding(cfg)
+        p["encoder"] = {"ln1": init.ones(ne, d), "ln2": init.ones(ne, d),
+                        "attn": init.attention(ne, cfg),
+                        "mlp": init.mlp(ne, cfg)}
+        p["decoder"] = {"ln1": init.ones(nd, d), "ln_x": init.ones(nd, d),
+                        "ln2": init.ones(nd, d),
+                        "attn": init.attention(nd, cfg),
+                        "xattn": init.cross_attention(nd, cfg),
+                        "mlp": init.mlp(nd, cfg)}
+        p["enc_norm"] = init.ones(None, d)
+        p["final_norm"] = init.ones(None, d)
+        return p
+
+    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, S, D] -> memory [B, S, D]: non-causal self-attention
+        layers, then the encoder's final norm."""
+        cfg = self.cfg
+        x = frames.to(L.dtype_of(cfg))
+        positions = _positions(x[..., 0])
+        for i in range(cfg.encoder_layers):
+            p = _layer(params["encoder"], i)
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            x = x + L.attention_train(p["attn"], h, cfg, positions,
+                                      causal=False)
+            h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+            x = x + L.mlp(p["mlp"], h, cfg)
+        return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _cross_mlp(self, p: Params, x: torch.Tensor,
+                   memory: torch.Tensor) -> torch.Tensor:
+        """A decoder layer after its self-attention: cross-attention over
+        the memory, then the MLP."""
+        cfg = self.cfg
+        h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + L.cross_attention(p["xattn"], h, memory, cfg)
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + L.mlp(p["mlp"], h, cfg)
+
+    def _decode_train(self, params: Params, tokens: torch.Tensor,
+                      memory: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.embed(params, tokens, cfg)
+        positions = _positions(tokens)
+        for i in range(cfg.num_layers):
+            p = _layer(params["decoder"], i)
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            x = x + L.attention_train(p["attn"], h, cfg, positions)
+            x = self._cross_mlp(p, x, memory)
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    # -- full sequence (scoring) -------------------------------------------------
+    def forward(self, params: Params, batch: Batch):
+        """frames [B, S, D] and tokens [B, T] -> (final decoder states
+        [B, T, D], aux loss 0)."""
+        memory = self.encode(params, batch["frames"])
+        return self._decode_train(params, batch["tokens"], memory), 0.0
+
+    def logits(self, params: Params, batch: Batch) -> torch.Tensor:
+        x, _ = self.forward(params, batch)
+        return L.unembed(params, x, self.cfg)
+
+    # -- dense serving -----------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int, device) -> Params:
+        cfg = self.cfg
+        dt = L.dtype_of(cfg)
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len,
+                 cfg.head_dim)
+        mem_len = max(cache_len // cfg.frame_ratio, 1)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "memory": torch.zeros((batch, mem_len, cfg.d_model),
+                                      dtype=dt, device=device)}
+
+    def prefill(self, params: Params, batch: Batch, cache_len: int):
+        """frames [B, S, D] and tokens [B, T] -> (logits [B, V] after the
+        last token, {"k", "v", "memory"})."""
+        cfg = self.cfg
+        memory = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        x = L.embed(params, tokens, cfg)
+        positions = _positions(tokens)
+        caches = []
+        for i in range(cfg.num_layers):
+            p = _layer(params["decoder"], i)
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            att, kv = L.attention_prefill(p["attn"], h, cfg, positions,
+                                          cache_len)
+            x = self._cross_mlp(p, x + att, memory)
+            caches.append(kv)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = L.unembed(params, x[:, -1:], cfg)[:, 0]
+        return logits, {**_stack(caches), "memory": memory}
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache,
+                    pos: int):
+        """tokens: [B, 1]; pos: absolute position (host int).  Returns
+        (logits [B, V], cache with its K/V updated in place)."""
+        cfg = self.cfg
+        x = L.embed(params, tokens, cfg)
+        kv = {"k": cache["k"], "v": cache["v"]}
+        for i in range(cfg.num_layers):
+            p = _layer(params["decoder"], i)
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            att, _ = L.attention_decode(p["attn"], h, cfg, _layer(kv, i),
+                                        pos)
+            x = self._cross_mlp(p, x + att, cache["memory"])
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return L.unembed(params, x, cfg)[:, 0], cache
+
+
 def get_model(cfg: ModelConfig):
     if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models {_FAMILY_TODO}")
+        return EncDecLM(cfg)
     if cfg.block_pattern:
         return HybridLM(cfg)
     return DecoderLM(cfg)

@@ -187,12 +187,23 @@ class Engine:
                              index=index)[:, None]
 
     def _prefill_batch(self, tokens: np.ndarray) -> Dict[str, torch.Tensor]:
-        if self.cfg.input_kind != "tokens":
-            raise NotImplementedError(
-                f"{self.cfg.name}: {self.cfg.input_kind} inputs are not "
-                f"ported yet (ROADMAP.md, Queue 1: other model families)")
-        return {"tokens": torch.from_numpy(
+        """The model's batch for a [B, T] prompt.  Frame inputs (the
+        encoder-decoder) get the stub frontend's zero frames
+        [B, max(T // frame_ratio, 1), D], as in JAX; embedding inputs
+        (qwen2-vl) have no served path here or in JAX and raise."""
+        cfg = self.cfg
+        batch = {"tokens": torch.from_numpy(
             np.ascontiguousarray(tokens, dtype=np.int32)).to(self.device)}
+        if cfg.input_kind == "frames":
+            b, t = tokens.shape
+            batch["frames"] = torch.zeros(
+                (b, max(t // cfg.frame_ratio, 1), cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        elif cfg.input_kind == "embeddings":
+            raise NotImplementedError(
+                "vlm serving requires precomputed embeddings; use "
+                "generate_from_embeds")
+        return batch
 
     # -- scoring (the ScorePage body: Infer -> ScorePage chains) --------------
     def score(self, tokens: np.ndarray) -> np.ndarray:
@@ -201,8 +212,10 @@ class Engine:
         ``tokens[:, :-1]``, gathered at ``tokens[:, 1:]``, averaged over
         T - 1 on the device; only the [B] means come back."""
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int32))
-        toks = self._prefill_batch(tokens)["tokens"]
-        logits = self.model.logits(self.params, {"tokens": toks[:, :-1]})
+        batch = self._prefill_batch(tokens)   # frames for T, as in JAX
+        toks = batch["tokens"]
+        logits = self.model.logits(self.params,
+                                   {**batch, "tokens": toks[:, :-1]})
         lf = torch.log_softmax(logits.float(), dim=-1)
         del logits
         picked = torch.gather(lf, -1, toks[:, 1:].long()[..., None])[..., 0]

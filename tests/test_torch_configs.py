@@ -5,7 +5,13 @@ yi-34b (GQA, untied unembed, rope_theta 5e6) and qwen2-72b (GQA, QKV
 bias, untied):
 
 * each port config equals the JAX one field for field at full width
-  (``attention_impl`` aside: the port's documented departure);
+  (``attention_impl`` aside: the port's documented departure), and so do
+  the MoE, VLM and encoder-decoder configs (qwen2-moe-a2.7b,
+  granite-moe-1b-a400m, qwen2-vl-2b, seamless-m4t-medium), whose models
+  ``tests/test_torch_moe.py``, ``test_torch_vlm.py`` and
+  ``test_torch_encdec.py`` hold; the port registers every JAX config, and
+  each model takes the paged path in the port exactly where it does in
+  JAX;
 * on ``reduced_config`` in float32, with the JAX init's weights
   (``params_from_numpy``), the port's ``DecoderLM`` gives the JAX logits at
   the JAX kernel tests' atol 3e-5 / rtol 1e-4 through the paged steps (a
@@ -39,6 +45,9 @@ from repro_torch.serving import (ContinuousBatcher, Engine, PagedBatcher,
                                  ServeConfig)
 
 ARCHS = ("gemma-2b", "yi-34b", "qwen2-72b")
+#: the other families' configs, held field for field here
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m", "qwen2-vl-2b",
+                "seamless-m4t-medium")
 TOL = dict(atol=3e-5, rtol=1e-4)
 B, M, BS = 4, 4, 8          # rows, table width, block size
 SC = dict(cache_len=64, max_new_tokens=6, block_size=8, prefill_chunk=8)
@@ -72,7 +81,7 @@ def engines(request):
     return jengine, engine
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_config_copy_matches_jax_field_for_field(arch):
     jf = dataclasses.asdict(jax_get_config(arch))
     pf = dataclasses.asdict(get_config(arch))
@@ -81,6 +90,20 @@ def test_config_copy_matches_jax_field_for_field(arch):
     assert jf == pf
     assert arch in ARCH_IDS
     assert [a for a in JAX_ARCH_IDS if a in ARCH_IDS] == ARCH_IDS
+
+
+def test_port_registers_every_jax_config():
+    assert ARCH_IDS == JAX_ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_supports_paged_matches_jax(arch, reduced):
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    if reduced:
+        jcfg, cfg = jax_reduced_config(jcfg), reduced_config(cfg)
+    assert getattr(get_model(cfg), "supports_paged", False) == \
+        getattr(jax_get_model(jcfg), "supports_paged", False)
 
 
 def _steps(rng, vocab):
