@@ -99,32 +99,14 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     return moe_ffn_global(p, x, cfg)
 
 
-def dispatch(p: Params, x: torch.Tensor, weights: torch.Tensor,
-             idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The FFN for given routes: x [B, T, D], weights and expert ids
-    [B, T, k] (as :func:`route` gives them) -> out [B, T, D], under
-    ``cfg.moe_dispatch``, shared experts included."""
-    if cfg.moe_dispatch == "grouped":
-        return _dispatch_grouped(p, x, weights, idx, cfg)
-    b, t, d = x.shape
-    return _dispatch_global(p, x.reshape(b * t, d),
-                            weights.reshape(b * t, -1),
-                            idx.reshape(b * t, -1), cfg).reshape(b, t, d)
-
-
 def moe_ffn_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-style grouped dispatch: each batch row is its own dispatch
     group (the cumulative sum runs over that row's T * k slots)."""
-    probs, weights, idx = route(p, x, cfg)                    # [B, T, k]
-    return _dispatch_grouped(p, x, weights, idx, cfg), _aux(probs, idx, cfg)
-
-
-def _dispatch_grouped(p: Params, x: torch.Tensor, weights: torch.Tensor,
-                      idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     m = cfg.moe
     b, t, d = x.shape
     e, k = m.num_experts, m.top_k
+    probs, weights, idx = route(p, x, cfg)                    # [B, T, k]
     cap = capacity(t, cfg)
     flat_idx = idx.reshape(b, t * k)
     safe_pos, keep = _slots(flat_idx, e, cap)                 # [B, T*k]
@@ -142,7 +124,7 @@ def _dispatch_grouped(p: Params, x: torch.Tensor, weights: torch.Tensor,
     out = expert_out.reshape(b, t, k, d).sum(2)
     if m.num_shared:
         out = out + _shared(p, x)
-    return out
+    return out, _aux(probs, idx, cfg)
 
 
 def moe_ffn_global(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -151,16 +133,9 @@ def moe_ffn_global(p: Params, x: torch.Tensor, cfg: ModelConfig
     row's padding can take a later row's slot (the JAX baseline)."""
     b, t, d = x.shape
     xt = x.reshape(b * t, d)
-    probs, weights, idx = route(p, xt, cfg)                   # [N, k]
-    out = _dispatch_global(p, xt, weights, idx, cfg)
-    return out.reshape(b, t, d), _aux(probs, idx, cfg)
-
-
-def _dispatch_global(p: Params, xt: torch.Tensor, weights: torch.Tensor,
-                     idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     m = cfg.moe
-    n_tok, d = xt.shape
-    e, k = m.num_experts, m.top_k
+    n_tok, e, k = b * t, m.num_experts, m.top_k
+    probs, weights, idx = route(p, xt, cfg)                   # [N, k]
     cap = capacity(n_tok, cfg)
     flat_idx = idx.reshape(-1)
     safe_pos, keep = _slots(flat_idx, e, cap)                 # [N*k]
@@ -176,4 +151,4 @@ def _dispatch_global(p: Params, xt: torch.Tensor, weights: torch.Tensor,
     out = expert_out.reshape(n_tok, k, d).sum(1)
     if m.num_shared:
         out = out + _shared(p, xt)
-    return out
+    return out.reshape(b, t, d), _aux(probs, idx, cfg)
