@@ -31,7 +31,12 @@ serving paths at full width, with weights drawn from a seeded
   the RG-LRU scan kernel), including a 2,000-token prompt whose decode
   wraps the ring cache; and rwkv6-7b (32 layers, d_model 4096, bf16),
   attention-free, whose prefill and scoring run the WKV scan kernel,
-  including a 2,000-token prompt.
+  including a 2,000-token prompt;
+* the training path (``train``): qwen2-1.5b at full width trained for 10
+  AdamW steps on Bebop pages decoded on the card by the page decode
+  kernel, checkpointed, restarted, held to the CPU at float32, and its
+  trained checkpoint served on the paged kernels; then
+  ``launch/train.py`` as a child process.
 
 Each path must launch its kernels (counts set to 0 just before it and
 read just after) and match a replay through the plain versions
@@ -42,7 +47,8 @@ computes the same function, that call.
 Every phase prints ``[phase] ok|FAIL <seconds> {json}``; the first failure
 ends the run with a nonzero exit.  ``--decode-timing`` (with ``--src`` for
 another checkout's ``src``) runs only the page decode timing rows, and
-``--scan-timing`` only the RG-LRU and WKV scan rows.  The line before the last is the
+``--scan-timing`` only the RG-LRU and WKV scan rows, ``--train-only`` only
+the kernels' build and the train phase.  The line before the last is the
 ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without ``src/repro_torch`` beside it, the script
@@ -52,10 +58,12 @@ package.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import json
 import os
 import queue
+import statistics
 import subprocess
 import sys
 import time
@@ -150,9 +158,17 @@ def main(argv=None) -> int:
                          "print them with ptxas's report of the two builds: "
                          "an A/B of two checkouts' scan kernels runs this "
                          "once per checkout")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only build the kernels and run the train phase "
+                         "(a check of the training path alone; the run "
+                         "with no arguments runs every phase)")
     ap.add_argument("--src", help="the directory holding the repro_torch "
                                   "to run (default: src beside this script)")
     args = ap.parse_args(argv)
+    # cuBLAS takes its workspace setting when it starts; the train phase
+    # trains under torch.use_deterministic_algorithms(True), which needs
+    # this one
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -225,6 +241,9 @@ def main(argv=None) -> int:
                 "source_flags": {k: " ".join(v) for k, v in
                                  build.SOURCE_FLAGS.items()}}
 
+    if args.train_only:
+        Phase("train")(lambda: train(torch, bd, fa, pa, rg, rw, dev, state))
+        return 0
     state.update(decode_kernel=Phase("decode_kernel")(
         lambda: check_decode(torch, bd, dev)))
     state.update(attention_kernels=Phase("attention_kernels")(
@@ -248,6 +267,7 @@ def main(argv=None) -> int:
     Phase("moe_serve")(lambda: moe_serve(torch, bd, pa, dev, state))
     Phase("vlm_prefill")(lambda: vlm_prefill(torch, fa, dev, state))
     Phase("encdec_serve")(lambda: encdec_serve(torch, bd, fa, dev, state))
+    Phase("train")(lambda: train(torch, bd, fa, pa, rg, rw, dev, state))
     Phase("timing")(lambda: timing(torch, bd, pa, fa, rg, rw, dev, state))
     emit(json.dumps({"kernels": state["kernels"]}))
     emit(json.dumps({"ok": True, "device": {
@@ -2966,6 +2986,468 @@ def encdec_serve(torch, bd, fa, dev, state):
     return info
 
 
+# -- training ------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH = 512, 8     # 4,096 tokens a step; page stride 2,068
+TRAIN_STEPS = 10
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+TRAIN_EXAMPLES = 96                 # 12 batches: the 10 steps' and a spare
+TRAIN_PAGE = 32                     # records per page
+PROFILE_STEP = 6                    # the step profiled inside the run
+# The restart check (5 steps, save, resume for 5) runs at 4 layers of full
+# width: at 28 layers each save and restore moves the whole 15.4 GB
+# checkpoint (params, f32 moments; 40 s to save and 23 s to restore on an
+# H100 host), three of them for the restart alone.
+# The 28-layer checkpoint is saved once and restored once (the trained
+# weights that serve).
+RESTART_LAYERS = 4
+# The CPU-against-card step: 2 layers at full width and full vocabulary,
+# float32, TF32 off, one [1, 128] batch.  The loss within 1e-5 relative,
+# each gradient leaf within atol 3e-5 * max|g| and rtol 1e-4 (the f32
+# tolerances of the JAX kernel tests), the params AdamW updates from the
+# same grads within 1e-6.
+CPU_LAYERS, CPU_SEQ = 2, 128
+LOSS_RTOL = 1e-5
+GRAD_ATOL, GRAD_RTOL = 3e-5, 1e-4
+PARAM_ATOL = 1e-6
+
+
+def _card_batches(torch, buf, dc, layout, dev, held, cursor=0):
+    """``device_batches``' raw pages, copied to the card and decoded there
+    by ``decode_page_device`` (the page decode kernel); each batch is held
+    bit-equal to the host ``Pipeline``'s batch at the same cursor, and its
+    cursor appended to ``held``."""
+    import numpy as np
+    from repro_torch.core.device import decode_page_device
+    from repro_torch.data import BufferSource, Pipeline, device_batches
+    src = BufferSource(buf)
+    host = Pipeline(dc, [src], len(src), cursor=cursor)
+    host_it = iter(host)
+    try:
+        for payload, cur in device_batches(buf, dc, cursor=cursor):
+            page = torch.from_numpy(payload.copy()).to(dev)
+            tokens = decode_page_device(page, layout)["tokens"]
+            batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+            want, want_cur = next(host_it)
+            got = tokens.cpu().numpy()
+            if cur != want_cur or not np.array_equal(
+                    got[:, :-1], want["tokens"]) or not np.array_equal(
+                    got[:, 1:], want["labels"]):
+                raise AssertionError(f"card-decoded batch at cursor {cur} "
+                                     f"differs from the host pipeline's "
+                                     f"(cursor {want_cur})")
+            held.append(cur)
+            yield batch, cur
+    finally:
+        host.stop()
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _profiled(torch, fn):
+    """``fn()`` under ``torch.profiler`` as ``profile`` runs it: wall ms,
+    device busy ms (the sum of the card's events) and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    top = {}
+    for e in ev:
+        top[e.name[:60]] = top.get(e.name[:60], 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    return out, {"wall_ms": wall, "device_busy_ms": busy if ev else None,
+                 "device_idle_share": 1 - busy / wall if ev else None,
+                 "device_ops": len(ev),
+                 "top_device_ms": dict(sorted(top.items(),
+                                              key=lambda kv: -kv[1])[:12])}
+
+
+def _timed_trainer(torch, trainer, times, profile_at, prof):
+    """Time each train step between two synchronizes (``times``: step
+    number -> s), except step ``profile_at``, which runs under the
+    profiler into ``prof``."""
+    step_fn = trainer._train_step
+
+    def step(*args):
+        n = trainer.step + 1
+        if n == profile_at:
+            out, info = _profiled(torch, lambda: step_fn(*args))
+            prof.update(info, step=n)
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times[n] = time.perf_counter() - t0
+        return out
+
+    trainer._train_step = step
+
+
+def _train_flops(params, cfg, b, t):
+    """6 N per token for the matrices, plus causal attention's QK and PV
+    products forward and backward (3 x 4 D a (query, key) pair)."""
+    n = sum(p.numel() for p in _leaves(params))
+    attn = 12 * cfg.head_dim * cfg.num_heads * b * _causal_pairs(t) \
+        * cfg.num_layers
+    return 6 * n * b * t + attn, n
+
+
+def train(torch, bd, fa, pa, rg, rw, dev, state):
+    """The port's training path at the full width of qwen2-1.5b (28 layers,
+    d_model 1536, 12/2 heads of 128, vocab 151,936, bf16, 1.54 B
+    parameters, random weights from a seeded ``torch.Generator``):
+    Zipf pages written by ``write_example_pages`` at seq_len 512, batches of
+    8 from ``device_batches`` decoded on the card (the page decode kernel),
+    10 AdamW steps through ``Trainer.run`` into a checkpoint; a restart
+    that must resume the uninterrupted run's losses bit for bit; one f32
+    step on the card against the CPU; the trained checkpoint restored and
+    served on the paged kernels; every wrapper's grad guard; and the
+    launcher as a child process."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import (DataConfig, example_layout,
+                                  synthetic_corpus, write_example_pages)
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import OptimizerConfig, TrainConfig, Trainer
+    from repro_torch.train import optimizer as O
+    gc.collect()     # the earlier phases' weights
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-1.5b")
+    toks = synthetic_corpus(TRAIN_SEQ, TRAIN_EXAMPLES, cfg.vocab_size,
+                            seed=SEED + 20)
+    buf = write_example_pages(TRAIN_SEQ, toks, records_per_page=TRAIN_PAGE)
+    dc = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                    records_per_page=TRAIN_PAGE)
+    layout = example_layout(TRAIN_SEQ)
+    opt = OptimizerConfig(**TRAIN_OPT)
+    info = {"arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype, "seq": TRAIN_SEQ,
+            "batch": TRAIN_BATCH, "page_stride": layout.stride,
+            "optimizer": TRAIN_OPT}
+    tmp = tempfile.mkdtemp(prefix="train_phase_")
+    try:
+        # 1. ten steps at full width, batches decoded on the card
+        held, times, prof, save_s = [], {}, {}, []
+        torch.cuda.reset_peak_memory_stats()
+        bd.decode_columns.launches = 0
+        data = _card_batches(torch, buf, dc, layout, dev, held)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, opt, TrainConfig(
+            steps=TRAIN_STEPS, ckpt_every=10 * TRAIN_STEPS,
+            ckpt_dir=os.path.join(tmp, "a"), log_every=1, seed=SEED),
+            data=data, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _timed_trainer(torch, tr, times, PROFILE_STEP, prof)
+        save = tr._save
+
+        def timed_save(blocking=False):
+            t = time.perf_counter()
+            save(blocking)
+            save_s.append(time.perf_counter() - t)
+        tr._save = timed_save
+        with _deterministic(torch):
+            res = tr.run()
+        data.close()
+        launches = bd.decode_columns.launches
+        peak = torch.cuda.max_memory_allocated()
+        losses = [lv for _, lv in res["losses"]]
+        if res["status"] != "done" or res["step"] != TRAIN_STEPS \
+                or len(losses) != TRAIN_STEPS \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"training ended {res}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        if launches != TRAIN_STEPS or held != [
+                TRAIN_BATCH * (i + 1) for i in range(TRAIN_STEPS)]:
+            raise AssertionError(f"{launches} decode launches for batches "
+                                 f"at cursors {held}")
+        # steps 2-10 but the profiled one (step 1 warms the allocator and
+        # cuBLAS up)
+        med = statistics.median(t * 1e3 for n, t in times.items() if n > 1)
+        flops, n_params = _train_flops(tr.params, cfg, TRAIN_BATCH,
+                                       TRAIN_SEQ)
+        bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+        ckpt_dir = os.path.join(tmp, "a", f"step_{TRAIN_STEPS}")
+        info.update({
+            "params": n_params, "init_s": init_s, "losses": losses,
+            "decode_launches": launches, "batches_held_to_host": len(held),
+            "step_ms": {n: t * 1e3 for n, t in times.items()},
+            "step_ms_median": med,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+            "peak_memory_gb": peak / 1e9,
+            "step_flops": flops, "flop_bound_ms": bound_ms,
+            "share_of_flop_bound": bound_ms / med,
+            "profiled_step": prof,
+            "checkpoint_save_s": save_s[-1],
+            "checkpoint_gb": _dir_bytes(ckpt_dir) / 1e9})
+        # 4. the trained checkpoint restores bit for bit and serves on the
+        # paged kernels
+        template = O.tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            {"params": tr.params, "opt": tr.opt_state})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, man = CheckpointManager(os.path.join(tmp, "a")).restore(
+            TRAIN_STEPS, template, device=dev)
+        torch.cuda.synchronize()
+        info["checkpoint_restore_s"] = time.perf_counter() - t0
+        if int(man["step"]) != TRAIN_STEPS \
+                or int(man["data_cursor"]) != tr.data_cursor:
+            raise AssertionError(f"manifest {man['step']} / "
+                                 f"{man['data_cursor']}")
+        for (name, got), (_, want) in zip(
+                _named(restored), _named({"params": tr.params,
+                                          "opt": tr.opt_state})):
+            if got.dtype != want.dtype or got.shape != want.shape \
+                    or not torch.equal(got, want):
+                raise AssertionError(f"restored {name} differs")
+        del tr, res, template
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = restored["params"]
+        del restored
+        kern = DecoderLM(cfg)
+        plain = DecoderLM(dataclasses.replace(cfg,
+                                              attention_impl="reference"))
+        pa.paged_attention.launches = pa.paged_prefill_attention.launches = 0
+        with torch.inference_mode():
+            served = _hold_step_logits(torch, _step_logits(
+                torch, cfg, params, {"kernel": kern, "plain": plain}, dev,
+                SEED + 21), LOGIT_TOL)
+        served["launches"] = {
+            "paged_attention": pa.paged_attention.launches,
+            "paged_prefill_attention": pa.paged_prefill_attention.launches}
+        if min(served["launches"].values()) < cfg.num_layers:
+            raise AssertionError(f"paged kernels launched "
+                                 f"{served['launches']}")
+        info["trained_weights_serve"] = dict(served, logit_tol=LOGIT_TOL)
+        del params, kern, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 2. restart: 5 steps and a save, then a new Trainer resumes
+        info["restart"] = _restart(torch, cfg, opt, buf, dc, layout, dev,
+                                   os.path.join(tmp, "b"))
+        # 3. one float32 step on the card against the CPU
+        info["cpu_vs_card"] = _cpu_vs_card(torch, cfg, toks, dev)
+        # 5. the guard: no wrapper launches under grad on an input that
+        # requires grad
+        info["grad_guard"] = _grad_guard(torch, bd, fa, pa, rg, rw, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 6. the launcher, with the card to itself
+    info["launcher"] = _launcher_train(state["src"])
+    state["train_launches"] = launches
+    info["card"] = state["smi"]
+    return info
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """``torch.use_deterministic_algorithms(True)``: every op on the
+    training path takes its deterministic form (the embedding's and the
+    CE gather's backward accumulate by a sort, not by atomics), so a run
+    repeats bit for bit.  The NaN fill of new tensors that the mode also
+    turns on (a check for reads of uninitialized memory) stays off: it
+    costs a pass over every allocation of the step."""
+    import torch.utils.deterministic as det
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+def _named(tree):
+    from repro_torch.checkpoint.format import flatten_tree
+    return list(flatten_tree(tree))
+
+
+def _restart(torch, cfg, opt, buf, dc, layout, dev, ckpt):
+    """At RESTART_LAYERS layers of full width, under
+    ``torch.use_deterministic_algorithms(True)``: 10 uninterrupted steps;
+    then 5 steps and a save, and a new Trainer on the same directory that
+    resumes at step 5 and the saved cursor.  Steps 6-10 must give the
+    uninterrupted run's losses bit for bit."""
+    from repro_torch.train import TrainConfig, Trainer
+    rcfg = dataclasses.replace(cfg, num_layers=RESTART_LAYERS)
+
+    def trainer(steps, ckpt_dir):
+        return Trainer(rcfg, opt, TrainConfig(
+            steps=steps, ckpt_every=10 * TRAIN_STEPS, ckpt_dir=ckpt_dir,
+            log_every=1, seed=SEED), data=iter(()), device=dev)
+
+    def run(tr):
+        held = []
+        tr.data = _card_batches(torch, buf, dc, layout, dev, held,
+                                cursor=tr.data_cursor)
+        res = tr.run()
+        tr.data.close()
+        return res
+
+    with _deterministic(torch):
+        full = run(trainer(TRAIN_STEPS, None))
+        first = run(trainer(TRAIN_STEPS // 2, ckpt))
+        t0 = time.perf_counter()
+        resumed = trainer(TRAIN_STEPS, ckpt)
+        restore_s = time.perf_counter() - t0
+        at = (resumed.step, resumed.data_cursor)
+        second = run(resumed)
+    half = TRAIN_STEPS // 2
+    if at != (half, half * TRAIN_BATCH):
+        raise AssertionError(f"resumed at step/cursor {at}")
+    want = full["losses"][half:]
+    if second["losses"] != want or first["losses"] != full["losses"][:half]:
+        raise AssertionError(f"restart losses {second['losses']} != "
+                             f"uninterrupted {want}")
+    return {"layers": RESTART_LAYERS, "deterministic_algorithms": True,
+            "resumed_at": {"step": at[0], "cursor": at[1]},
+            "losses_6_10": [lv for _, lv in second["losses"]],
+            "bit_equal_to_uninterrupted": True,
+            "trainer_init_with_restore_s": restore_s,
+            "checkpoint_gb": _dir_bytes(ckpt) / 1e9}
+
+
+def _cpu_vs_card(torch, cfg, toks, dev):
+    """One float32 step of a CPU_LAYERS-layer qwen2-1.5b at full width and
+    vocabulary on the card and on the CPU, same params and batch."""
+    from repro_torch.models import get_model
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import loss_and_grads
+    ccfg = dataclasses.replace(cfg, num_layers=CPU_LAYERS, dtype="float32",
+                               attention_impl="reference")
+    model = get_model(ccfg)
+    cpu = torch.device("cpu")
+    p_cpu = model.init(SEED + 22, cpu)
+    p_dev = O.tree_map(lambda t: t.to(dev), p_cpu)
+    seq = torch.from_numpy(toks[:1, :CPU_SEQ + 1].astype("int32"))
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = loss_and_grads(model, p_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    l_dev, g_dev = loss_and_grads(model, p_dev, O.tree_map(
+        lambda t: t.to(dev), batch))
+    rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    if rel > LOSS_RTOL:
+        raise AssertionError(f"loss {float(l_dev)} on the card, "
+                             f"{float(l_cpu)} on the CPU")
+    worst = {}
+    for (name, gd), (_, gc_) in zip(_named(g_dev), _named(g_cpu)):
+        gd = gd.cpu()
+        scale = float(gc_.abs().max())
+        excess = float(((gd - gc_).abs() - GRAD_RTOL * gc_.abs()).max())
+        worst[name] = excess / scale if scale else excess
+        if excess > GRAD_ATOL * scale:
+            raise AssertionError(f"grad {name}: |card - cpu| - "
+                                 f"{GRAD_RTOL}|cpu| = {excess}, limit "
+                                 f"{GRAD_ATOL} * {scale}")
+    # AdamW from the same (CPU) grads on both devices
+    opt = OptimizerConfig(**TRAIN_OPT)
+    new_cpu, _ = O.adamw_update(g_cpu, O.init_opt_state(p_cpu, opt),
+                                p_cpu, opt)
+    new_dev, _ = O.adamw_update(O.tree_map(lambda t: t.to(dev), g_cpu),
+                                O.init_opt_state(p_dev, opt), p_dev, opt)
+    param_err = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b)
+                    in zip(_named(new_dev), _named(new_cpu)))
+    if param_err > PARAM_ATOL:
+        raise AssertionError(f"updated params differ by {param_err}")
+    return {"layers": CPU_LAYERS, "seq": CPU_SEQ, "dtype": "float32",
+            "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "loss_card": float(l_dev), "loss_cpu": float(l_cpu),
+            "loss_rel_diff": rel, "loss_rtol": LOSS_RTOL,
+            "grad_worst_excess_over_max": max(worst.values()),
+            "grad_atol_times_max": GRAD_ATOL, "grad_rtol": GRAD_RTOL,
+            "updated_param_max_abs_diff": param_err,
+            "param_atol": PARAM_ATOL, "cpu_step_s": cpu_s}
+
+
+def _grad_guard(torch, bd, fa, pa, rg, rw, dev):
+    """Each CUDA wrapper, under grad mode with an input that requires grad,
+    raises ``ValueError`` before launching; under ``torch.no_grad()`` the
+    same call launches.  (A page that requires grad can only be a float
+    tensor: the guard refuses it before the wrapper's dtype check.)"""
+    def f(*shape):
+        return torch.randn(shape, device=dev, requires_grad=True)
+    q, kv = f(1, 2, 4, 64), f(1, 1, 4, 64)
+    pool = torch.zeros((3, 1, 16, 64), device=dev)
+    tables = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    pos = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    x = f(1, 4, 16)
+    r, u = f(1, 2, 4, 16), torch.zeros((2, 16), device=dev)
+    calls = {
+        "flash_attention": lambda: fa.flash_attention(q, kv, kv),
+        "paged_attention": lambda: pa.paged_attention(
+            q[:, :, 0].contiguous(), pool, pool, tables, pos[:, 0] + 1),
+        "paged_prefill_attention": lambda: pa.paged_prefill_attention(
+            q, pool, pool, tables, pos),
+        "rglru_scan": lambda: rg.rglru_scan(x, x.detach()),
+        "rwkv6_scan": lambda: rw.rwkv6_scan(r, r, r, r, u),
+        "decode_columns": lambda: bd.decode_columns(
+            f(2, 8), [(0, 2, "uint32", "int32")]),
+        "decode_column": lambda: bd.decode_column(
+            f(2, 8), offset=0, count=2, wire_dtype="uint32"),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if f"{name}: the CUDA kernel has no backward" not in str(e):
+                raise
+            out[name] = "refused"
+        else:
+            raise AssertionError(f"{name} launched under grad")
+    with torch.no_grad():
+        before = fa.flash_attention.launches
+        fa.flash_attention(q, kv, kv)
+        if fa.flash_attention.launches != before + 1:
+            raise AssertionError("flash attention did not launch under "
+                                 "no_grad")
+    return out
+
+
+def _launcher_train(src):
+    """``python -m repro_torch.launch.train --arch qwen2-1.5b --full
+    --steps 4 --seq-len 512 --global-batch 8`` as a subprocess: it must
+    exit 0 and print ``finished: done at step 4``."""
+    env = dict(os.environ, PYTHONPATH=src)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", "qwen2-1.5b", "--full", "--steps", "4",
+                          "--seq-len", str(TRAIN_SEQ), "--global-batch",
+                          str(TRAIN_BATCH)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or "finished: done at step 4" not in lines:
+        raise AssertionError(f"launcher exited {out.returncode}: "
+                             f"{out.stdout[-500:]} {out.stderr[-1500:]}")
+    return {"exit_code": out.returncode,
+            "seconds": time.perf_counter() - t0, "lines": lines}
+
+
 # -- timing ------------------------------------------------------------------
 
 
@@ -3135,6 +3617,35 @@ def decode_rows(torch, bd, dev, gen, flush):
     return rows
 
 
+def _train_decode_row(torch, bd, dev, gen, flush, launches):
+    """The page decode kernel at the train path's page: 8 TrainExample512
+    records (stride 2,068), doc_id and tokens in one launch.  No single
+    PyTorch call computes both columns, so no library time."""
+    from repro_torch.core.device import default_out_dtype
+    from repro_torch.data import example_layout
+    layout = example_layout(TRAIN_SEQ)
+    plan = tuple(c.as_field(default_out_dtype(c.wire_dtype))
+                 for c in layout.columns)
+    page = torch.randint(0, 256, (TRAIN_BATCH, layout.stride),
+                         generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    outs = bd.decode_columns(page, plan)
+    if not all(torch.equal(a, b) for a, b in
+               zip(outs, bd.decode_columns_plain(page, plan))):
+        raise AssertionError("train page decode differs from its plain "
+                             "version")
+    nbytes = page.numel() + sum(o.numel() * o.element_size() for o in outs)
+    return {"ms": _cold_ms(torch, lambda: bd.decode_columns(page, plan),
+                           flush),
+            "plain_ms": _cold_ms(
+                torch, lambda: bd.decode_columns_plain(page, plan), flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "launches_on_train_path": launches,
+            "shape": f"page [{TRAIN_BATCH}, {layout.stride}] u8 -> doc_id "
+                     f"[{TRAIN_BATCH}, 16] uint8, tokens [{TRAIN_BATCH}, "
+                     f"{TRAIN_SEQ + 1}] int32"}
+
+
 def scan_rows(torch, rg, rw, dev, gen, flush, plain=True):
     """The RG-LRU scan at recurrentgemma-9b's longest served prompt of the
     wave (T 400) and its 2,000-token prompt, in the float32 the model feeds
@@ -3201,6 +3712,9 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
             "max_abs_err": state["decode_kernel"]["max_abs_err"],
             **decode.pop(name)})
     extra.update({f"bebop_decode.{k}": v for k, v in decode.items()})
+    kernels[0]["launches_on_train_path"] = state["train_launches"]
+    extra["bebop_decode.decode_columns@train"] = _train_decode_row(
+        torch, bd, dev, gen, flush, state["train_launches"])
     # attention at the serve rows' mid-generation contexts
     rows = _paged_rows(torch, pa, dev, gen, flush, (HQ, HKV, HD))
     for name, line, key, row in (

@@ -5,6 +5,8 @@ layout is fixed at compile time, so every column's ``(offset, count,
 dtype)`` is planned once and handed to the decode kernel.  A column is
 device-decodable only if its byte offset is a multiple of its element
 size (the alignment rule the paper's C generator gets by sorting fields).
+:func:`decode_page_device` decodes a ``[N, stride]`` u8 payload by its
+layout in one launch of the page decode kernel.
 
 :func:`torch_device` is the port's device rule for every entry point:
 CUDA unless the caller asks for the CPU, and an error, never a silent
@@ -13,10 +15,11 @@ CPU run, when CUDA is asked for and there is none.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..kernels import bebop_decode
 from . import types as T
 from .fastwire import static_dtype
 
@@ -99,6 +102,29 @@ def plan_device_layout(s: T.Struct) -> DeviceLayout:
             cols.append(col)
         offset += size
     return DeviceLayout(s.name, dt.itemsize, tuple(cols))
+
+
+def decode_page_device(payload_u8: torch.Tensor, layout: DeviceLayout,
+                       out_dtypes: Optional[Dict[str, str]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """[N, stride] u8 tensor -> {column name: [N, count] decoded tensor}.
+
+    Every column goes through one :func:`~repro_torch.kernels.bebop_decode.
+    decode_columns` call: on a CUDA tensor the kernel, on a CPU tensor its
+    plain version.  A column decodes to ``out_dtypes[name]``, or to
+    :func:`default_out_dtype` of its wire dtype.  (The JAX version's
+    ``impl`` and ``block_n`` choose its kernel's path and tile; the tensor's
+    device does the first here, and the CUDA kernel sizes its own tiles.)
+    """
+    if payload_u8.shape[1] != layout.stride:
+        raise T.DecodeError(
+            f"payload stride {payload_u8.shape[1]} != layout {layout.stride}")
+    out_dtypes = out_dtypes or {}
+    fields = tuple(
+        c.as_field(out_dtypes.get(c.name, default_out_dtype(c.wire_dtype)))
+        for c in layout.columns)
+    outs = bebop_decode.decode_columns(payload_u8, fields)
+    return {c.name: o for c, o in zip(layout.columns, outs)}
 
 
 def default_out_dtype(wire_dtype: str) -> str:

@@ -1,8 +1,8 @@
 """Record pages: a checksummed ``[record_count, record_stride]`` byte matrix.
 
 Copied from the JAX package's ``core/pages.py`` (page write, header read,
-payload validation, page iteration and cursor seek), so the port reads and
-writes the same bytes.
+payload validation, the host decode, page iteration and cursor seek), so
+the port reads and writes the same bytes.
 
 Page layout (all little-endian):
 
@@ -28,6 +28,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from . import fastwire
 from . import types as T
 from .hashing import schema_hash
 
@@ -63,8 +64,8 @@ def _pad_to(n: int, align: int) -> int:
     return (n + align - 1) // align * align
 
 
-def write_page(schema_name: str, records: np.ndarray,
-               first_record: int = 0) -> bytes:
+def write_page(schema_name: str, records: np.ndarray, first_record: int = 0,
+               *, compress: bool = False) -> bytes:
     """Pack a structured array (or [N, stride] u8 matrix) into one page."""
     if records.ndim == 1 and records.dtype.names:
         payload = np.ascontiguousarray(records).view("u1").reshape(
@@ -76,12 +77,19 @@ def write_page(schema_name: str, records: np.ndarray,
                         f"got {records.dtype} ndim={records.ndim}")
     count, stride = payload.shape
     raw = payload.tobytes()
-    header = _HEADER.pack(MAGIC, VERSION, 0, count, stride,
-                          schema_hash(schema_name), zlib.crc32(raw),
-                          first_record, len(raw))
+    crc = zlib.crc32(raw)
+    flags = 0
+    stored = raw
+    if compress:
+        import zstandard
+        stored = zstandard.ZstdCompressor(level=3).compress(raw)
+        flags |= FLAG_COMPRESSED
+    header = _HEADER.pack(MAGIC, VERSION, flags, count, stride,
+                          schema_hash(schema_name), crc, first_record,
+                          len(stored))
     header += b"\x00" * (HEADER_SIZE - len(header))
-    total = _pad_to(HEADER_SIZE + len(raw), PAGE_ALIGN)
-    return header + raw + b"\x00" * (total - HEADER_SIZE - len(raw))
+    total = _pad_to(HEADER_SIZE + len(stored), PAGE_ALIGN)
+    return header + stored + b"\x00" * (total - HEADER_SIZE - len(stored))
 
 
 def page_size(header: PageHeader) -> int:
@@ -133,6 +141,20 @@ def read_payload(buf, offset: int = 0, *, verify: bool = True,
             raise PageError("payload CRC mismatch (corrupt page)")
     arr = np.frombuffer(raw, dtype="u1", count=logical)
     return arr.reshape(h.record_count, h.record_stride)
+
+
+def decode_page(s: T.Struct, buf, offset: int = 0, *,
+                verify: bool = True) -> np.ndarray:
+    """Page -> structured record view (the branchless host decode)."""
+    payload = read_payload(buf, offset, verify=verify, expect_schema=s.name)
+    dt = fastwire.static_dtype(s)
+    if dt is None:
+        raise PageError(f"struct {s.name} has no static layout")
+    h = read_header(buf, offset)
+    if h.record_stride != dt.itemsize:
+        raise PageError(
+            f"stride mismatch: page {h.record_stride}, schema {dt.itemsize}")
+    return np.ascontiguousarray(payload).view(dt).reshape(h.record_count)
 
 
 def iter_pages(buf) -> Iterator[int]:

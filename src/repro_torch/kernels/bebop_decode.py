@@ -233,6 +233,8 @@ def decode_columns(pages: torch.Tensor, fields: Sequence
     edge).  Returns one ``[N, count]`` tensor per field.  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises.
     """
+    if pages.device.type != "cpu":
+        build.refuse_grad(decode_columns, pages)
     plan = _check_fields(pages, fields)
     if pages.device.type == "cpu":
         return [_decode_field_plain(pages, *f) for f in plan.fields]
@@ -245,6 +247,8 @@ decode_columns.launches = 0
 def decode_column(pages: torch.Tensor, *, offset: int, count: int,
                   wire_dtype: str, out_dtype=None) -> torch.Tensor:
     """One fixed-width column: a one-field plan through the same kernel."""
+    if pages.device.type != "cpu":
+        build.refuse_grad(decode_column, pages)
     plan = _check_fields(pages, ((offset, count, wire_dtype,
                                   out_dtype or default_out(wire_dtype)),))
     if pages.device.type == "cpu":

@@ -149,6 +149,19 @@ def launch(fn, device, *args) -> None:
     check(err, fn.__name__)
 
 
+def refuse_grad(wrapper, *tensors) -> None:
+    """Raise where autograd would record a kernel launch.  The kernels
+    have no backward, and an output filled over ``ctypes`` carries no
+    ``grad_fn``: a launch under grad mode on an input that requires grad
+    would silently drop every gradient through it.  Under
+    ``torch.no_grad()`` and in inference mode this passes."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{wrapper.__name__}: the CUDA kernel has no backward, and an "
+            f"input requires grad; differentiate through the plain version "
+            f"(attention_impl='reference') or launch under torch.no_grad()")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:

@@ -106,6 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_offset=q_offset)
+    build.refuse_grad(flash_attention, q, k, v)
     lib = _lib()
     _check(q, k, v, q_offset)
     b, hq, tq, d = q.shape

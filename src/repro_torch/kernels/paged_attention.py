@@ -143,6 +143,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      ctx_lens, scale=scale)
+    build.refuse_grad(paged_attention, q, k_pool, v_pool)
     lib = _lib()
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
         v_pool.contiguous()
@@ -181,6 +182,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, block_tables,
                                              qpos, scale=scale)
+    build.refuse_grad(paged_prefill_attention, q, k_pool, v_pool)
     lib = _lib()
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
         v_pool.contiguous()

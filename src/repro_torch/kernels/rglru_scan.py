@@ -52,6 +52,7 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor
     """
     if x.device.type == "cpu":
         return rglru_scan_plain(x, a)
+    build.refuse_grad(rglru_scan, x, a)
     lib = _lib()
     if not (x.is_cuda and a.is_cuda):
         raise ValueError("rglru scan kernel needs CUDA tensors")

@@ -143,6 +143,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u)
+    build.refuse_grad(rwkv6_scan, r, k, v, w, u)
     lib = _lib()
     if not all(x.is_cuda for x in (r, k, v, w, u)):
         raise ValueError("rwkv6 scan kernel needs CUDA tensors")

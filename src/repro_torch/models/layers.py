@@ -454,3 +454,37 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+def _nll_sum(lf: torch.Tensor, labels: torch.Tensor):
+    """(sum of -log p(label), count of labels) over float32 logits
+    ``[..., V]``; a label of -1 is ignored."""
+    lse = torch.logsumexp(lf, dim=-1)
+    idx = labels.clamp_min(0).long()[..., None]
+    picked = torch.gather(lf, -1, idx)[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - picked) * mask), torch.sum(mask)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE in float32.  logits: [B, T, V]; labels: [B, T] (-1 = ignore)."""
+    total, count = _nll_sum(logits.float(), labels)
+    return total / count.clamp_min(1.0)
+
+
+def chunked_loss(p: Params, x: torch.Tensor, labels: torch.Tensor,
+                 cfg: ModelConfig, chunk: int) -> torch.Tensor:
+    """Sequence-chunked vocab loss: the unembed and CE run ``chunk``
+    positions at a time, so the ``[B, chunk, V]`` logits are the largest
+    buffer (a loop over chunks takes the place of the JAX scan).  T is a
+    multiple of ``chunk``, as the JAX reshape requires."""
+    b, t, _ = x.shape
+    if t % chunk:
+        raise ValueError(f"sequence {t} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    total = count = 0.0
+    for s in range(0, t, chunk):
+        n, c = _nll_sum(unembed(p, x[:, s:s + chunk], cfg).float(),
+                        labels[:, s:s + chunk])
+        total, count = total + n, count + c
+    return total / torch.clamp_min(count, 1.0)

@@ -2,7 +2,9 @@
 token or embedding (M-RoPE) inputs, paged serving, dense prefill and
 decode and full-sequence logits; or RWKV6 layers with dense serving and
 logits), the hybrid LM (RecurrentGemma) and the encoder-decoder LM
-(the Seamless backbone).
+(the Seamless backbone).  Every model also computes the training loss
+(:meth:`_LM.loss`), its layers recomputed in the backward under
+``remat="full"``.
 
 The JAX package stacks layer parameters ``[L, ...]`` and consumes them
 with ``jax.lax.scan``; here a Python loop over layers takes the place of
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -59,6 +62,37 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def _window(cfg: ModelConfig):
     return cfg.window if cfg.attention_kind == "local" else None
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; under ``remat="full"`` with grad on, its activations
+    are recomputed in the backward instead of saved (JAX's
+    ``jax.checkpoint`` of the scanned layer body)."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+class _LM:
+    """What every model computes from ``forward``'s final hidden states:
+    full-sequence logits and the training loss."""
+
+    def logits(self, params: Params, batch: Batch) -> torch.Tensor:
+        x, _ = self.forward(params, batch)
+        return L.unembed(params, x, self.cfg)
+
+    def loss(self, params: Params, batch: Batch) -> torch.Tensor:
+        """Mean next-token CE over ``batch["labels"]`` (-1 ignored), in
+        float32, plus the MoE aux loss (0 without MoE): sequence-chunked
+        when ``cfg.loss_chunk`` is set, as in JAX."""
+        cfg = self.cfg
+        x, aux = self.forward(params, batch)
+        labels = batch["labels"]
+        if cfg.loss_chunk:
+            ce = L.chunked_loss(params, x, labels, cfg, cfg.loss_chunk)
+        else:
+            ce = L.cross_entropy(L.unembed(params, x, cfg), labels)
+        return ce + aux
 
 
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig):
@@ -123,7 +157,7 @@ def decoder_layer_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + y, pools
 
 
-class DecoderLM:
+class DecoderLM(_LM):
     """Decoder-only LM over homogeneous layers: GQA with a dense or an MoE
     FFN (paged serving steps, dense prefill and decode against a
     ``[L, B, Hkv, S, hd]`` cache, full-sequence logits), from tokens or,
@@ -169,7 +203,7 @@ class DecoderLM:
             positions = positions.expand(3, *positions.shape)
         return L.embed(params, tokens, cfg), positions
 
-    # -- full sequence (scoring) -------------------------------------------------
+    # -- full sequence (scoring, training) ---------------------------------------
     def forward(self, params: Params, batch: Batch):
         """Final hidden states [B, T, D] over whole sequences, and the
         auxiliary loss summed over layers (0 without MoE)."""
@@ -177,14 +211,10 @@ class DecoderLM:
         x, positions = self._inputs(params, batch)
         aux = 0.0
         for i in range(cfg.num_layers):
-            x, a = decoder_layer_train(_layer(params["layers"], i), x, cfg,
-                                       positions)
+            x, a = _remat(cfg, decoder_layer_train,
+                          _layer(params["layers"], i), x, cfg, positions)
             aux = aux + a
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
-
-    def logits(self, params: Params, batch: Batch) -> torch.Tensor:
-        x, _ = self.forward(params, batch)
-        return L.unembed(params, x, self.cfg)
 
     # -- dense serving -----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device) -> Params:
@@ -290,7 +320,7 @@ class DecoderLM:
         return L.unembed(params, x, self.cfg), pool
 
 
-class HybridLM:
+class HybridLM(_LM):
     """RecurrentGemma: super-blocks of ``cfg.block_pattern`` temporal
     blocks (RG-LRU recurrent or local attention, each followed by an MLP),
     then ``cfg.tail_pattern``.  Served by the dense engine only."""
@@ -353,19 +383,27 @@ class HybridLM:
         h = L.rms_norm(x, sub["ln2"], cfg.norm_eps)
         return x + L.mlp(sub["mlp"], h, cfg)
 
+    def _super_train(self, sup: Params, x, positions):
+        """One super-block: ``cfg.block_pattern``'s blocks in order."""
+        for i, kind in enumerate(self.cfg.block_pattern):
+            x = self._block_train(sup[f"b{i}"], kind, x, positions)
+        return x
+
     def forward(self, params: Params, batch: Batch
                 ) -> Tuple[torch.Tensor, float]:
+        """The super-blocks (each recomputed in the backward under
+        ``remat="full"``, as JAX remats its scanned body), then the tail."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = L.embed(params, tokens, cfg)
         positions = _positions(tokens)
-        for sub, kind, _ in self._blocks(params):
-            x = self._block_train(sub, kind, x, positions)
+        for j in range(self.n_super):
+            x = _remat(cfg, self._super_train, _layer(params["supers"], j),
+                       x, positions)
+        for i, kind in enumerate(cfg.tail_pattern):
+            x = self._block_train(params["tail"][f"t{i}"], kind, x,
+                                  positions)
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
-
-    def logits(self, params: Params, batch: Batch) -> torch.Tensor:
-        x, _ = self.forward(params, batch)
-        return L.unembed(params, x, self.cfg)
 
     # -- serving ---------------------------------------------------------------
     def _empty_block_cache(self, kind: str, batch: int, cache_len: int,
@@ -448,7 +486,7 @@ class HybridLM:
         return L.unembed(params, x, cfg)[:, 0], cache
 
 
-class EncDecLM:
+class EncDecLM(_LM):
     """Encoder-decoder LM (the Seamless backbone): a non-causal encoder
     over frame embeddings ``batch["frames"]`` [B, S, D], and a token
     decoder whose layers add cross-attention over the encoder's output
@@ -485,13 +523,17 @@ class EncDecLM:
         x = frames.to(L.dtype_of(cfg))
         positions = _positions(x[..., 0])
         for i in range(cfg.encoder_layers):
-            p = _layer(params["encoder"], i)
-            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            x = x + L.attention_train(p["attn"], h, cfg, positions,
-                                      causal=False)
-            h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-            x = x + L.mlp(p["mlp"], h, cfg)
+            x = _remat(cfg, self._encoder_layer,
+                       _layer(params["encoder"], i), x, positions)
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _encoder_layer(self, p: Params, x, positions):
+        cfg = self.cfg
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + L.attention_train(p["attn"], h, cfg, positions,
+                                  causal=False)
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + L.mlp(p["mlp"], h, cfg)
 
     def _cross_mlp(self, p: Params, x: torch.Tensor,
                    memory: torch.Tensor) -> torch.Tensor:
@@ -509,22 +551,21 @@ class EncDecLM:
         x = L.embed(params, tokens, cfg)
         positions = _positions(tokens)
         for i in range(cfg.num_layers):
-            p = _layer(params["decoder"], i)
-            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            x = x + L.attention_train(p["attn"], h, cfg, positions)
-            x = self._cross_mlp(p, x, memory)
+            x = _remat(cfg, self._decoder_layer,
+                       _layer(params["decoder"], i), x, positions, memory)
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
-    # -- full sequence (scoring) -------------------------------------------------
+    def _decoder_layer(self, p: Params, x, positions, memory):
+        h = L.rms_norm(x, p["ln1"], self.cfg.norm_eps)
+        x = x + L.attention_train(p["attn"], h, self.cfg, positions)
+        return self._cross_mlp(p, x, memory)
+
+    # -- full sequence (scoring, training) ---------------------------------------
     def forward(self, params: Params, batch: Batch):
         """frames [B, S, D] and tokens [B, T] -> (final decoder states
         [B, T, D], aux loss 0)."""
         memory = self.encode(params, batch["frames"])
         return self._decode_train(params, batch["tokens"], memory), 0.0
-
-    def logits(self, params: Params, batch: Batch) -> torch.Tensor:
-        x, _ = self.forward(params, batch)
-        return L.unembed(params, x, self.cfg)
 
     # -- dense serving -----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device) -> Params:

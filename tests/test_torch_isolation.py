@@ -1,9 +1,11 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU fallback.
 
 * Every module of ``repro_torch`` imports in a fresh interpreter whose
-  import hook refuses ``jax`` and ``repro``.
-* No file of the port (nor ``chip_smoke.py``) names ``jax`` or ``repro``
-  in an import statement.
+  import hook refuses ``jax``, ``repro`` and ``ml_dtypes`` (the card's
+  machine has no ``ml_dtypes``: the checkpoint format reads bfloat16 as
+  its bits).
+* No file of the port (nor ``chip_smoke.py``) names ``jax``, ``repro`` or
+  ``ml_dtypes`` in an import statement.
 * Entry points default to the card and raise where CUDA is missing.
 * A non-CPU tensor never reaches a plain version: with the kernel
   library unavailable, the wrappers raise instead of answering; and a
@@ -39,14 +41,14 @@ import importlib, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "repro"):
+        if root in ("jax", "jaxlib", "repro", "ml_dtypes"):
             raise ImportError(f"blocked import of {name}")
         return None
 
 sys.meta_path.insert(0, Block())
 for name in sys.argv[1:]:
     importlib.import_module(name)
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                for m in sys.modules), sorted(sys.modules)
 print("ok", len(sys.argv) - 1)
 """
@@ -82,7 +84,8 @@ def test_no_import_names_jax_or_repro(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+            assert name.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                              "ml_dtypes"), \
                 f"{path}:{node.lineno} imports {name}"
 
 
