@@ -47,8 +47,7 @@ computes the same function, that call.
 Every phase prints ``[phase] ok|FAIL <seconds> {json}``; the first failure
 ends the run with a nonzero exit.  ``--decode-timing`` (with ``--src`` for
 another checkout's ``src``) runs only the page decode timing rows, and
-``--scan-timing`` only the RG-LRU and WKV scan rows, ``--train-only`` only
-the kernels' build and the train phase.  The line before the last is the
+``--scan-timing`` only the RG-LRU and WKV scan rows.  The line before the last is the
 ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without ``src/repro_torch`` beside it, the script
@@ -158,16 +157,12 @@ def main(argv=None) -> int:
                          "print them with ptxas's report of the two builds: "
                          "an A/B of two checkouts' scan kernels runs this "
                          "once per checkout")
-    ap.add_argument("--train-only", action="store_true",
-                    help="only build the kernels and run the train phase "
-                         "(a check of the training path alone; the run "
-                         "with no arguments runs every phase)")
     ap.add_argument("--src", help="the directory holding the repro_torch "
                                   "to run (default: src beside this script)")
     args = ap.parse_args(argv)
-    # cuBLAS takes its workspace setting when it starts; the train phase
-    # trains under torch.use_deterministic_algorithms(True), which needs
-    # this one
+    # cuBLAS takes its workspace setting when it starts; the train phase's
+    # restart check runs under torch.use_deterministic_algorithms(True),
+    # which needs this one
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
@@ -241,9 +236,6 @@ def main(argv=None) -> int:
                 "source_flags": {k: " ".join(v) for k, v in
                                  build.SOURCE_FLAGS.items()}}
 
-    if args.train_only:
-        Phase("train")(lambda: train(torch, bd, fa, pa, rg, rw, dev, state))
-        return 0
     state.update(decode_kernel=Phase("decode_kernel")(
         lambda: check_decode(torch, bd, dev)))
     state.update(attention_kernels=Phase("attention_kernels")(
@@ -2994,6 +2986,8 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
 TRAIN_EXAMPLES = 96                 # 12 batches: the 10 steps' and a spare
 TRAIN_PAGE = 32                     # records per page
 PROFILE_STEP = 6                    # the step profiled inside the run
+#: make_train_step's profiler ranges: the forward, and compression + AdamW
+STEP_RANGES = ("train_step/forward", "train_step/optimizer")
 # The restart check (5 steps, save, resume for 5) runs at 4 layers of full
 # width: at 28 layers each save and restore moves the whole 15.4 GB
 # checkpoint (params, f32 moments; 40 s to save and 23 s to restore on an
@@ -3047,9 +3041,15 @@ def _dir_bytes(path):
                for d, _, files in os.walk(path) for f in files)
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, ranges=()):
     """``fn()`` under ``torch.profiler`` as ``profile`` runs it: wall ms,
-    device busy ms (the sum of the card's events) and the idle share."""
+    device busy ms (the sum of the card's kernels and copies), the idle
+    share, and each ``record_function`` range in ``ranges`` with the device
+    ms of the kernels launched inside it (``device_time_total`` of its host
+    event; kernels launched from another thread, as autograd's backward
+    on the card is, fall outside every range).  The card-side copy of a
+    range the profiler records (its span, not work) is left out of the
+    busy sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -3060,15 +3060,20 @@ def _profiled(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    ev = [e for e in events if e.device_type == DeviceType.CUDA
+          and e.name not in ranges]
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     top = {}
     for e in ev:
         top[e.name[:60]] = top.get(e.name[:60], 0.0) \
             + e.time_range.elapsed_us() / 1e3
+    in_range = {r: sum(e.device_time_total for e in events
+                       if e.name == r and e.device_type == DeviceType.CPU)
+                / 1e3 for r in ranges}
     return out, {"wall_ms": wall, "device_busy_ms": busy if ev else None,
                  "device_idle_share": 1 - busy / wall if ev else None,
-                 "device_ops": len(ev),
+                 "device_ops": len(ev), "range_device_ms": in_range,
                  "top_device_ms": dict(sorted(top.items(),
                                               key=lambda kv: -kv[1])[:12])}
 
@@ -3082,8 +3087,13 @@ def _timed_trainer(torch, trainer, times, profile_at, prof):
     def step(*args):
         n = trainer.step + 1
         if n == profile_at:
-            out, info = _profiled(torch, lambda: step_fn(*args))
-            prof.update(info, step=n)
+            out, info = _profiled(torch, lambda: step_fn(*args),
+                                  STEP_RANGES)
+            fwd, opt = (info["range_device_ms"][r] for r in STEP_RANGES)
+            prof.update(info, step=n, forward_device_ms=fwd,
+                        optimizer_device_ms=opt,
+                        backward_and_rest_device_ms=info["device_busy_ms"]
+                        - fwd - opt)
             return out
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3120,14 +3130,18 @@ def train(torch, bd, fa, pa, rg, rw, dev, state):
     import tempfile
 
     import numpy as np
-    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import CheckpointManager, flatten_tree
     from repro_torch.configs import get_config
     from repro_torch.data import (DataConfig, example_layout,
                                   synthetic_corpus, write_example_pages)
     from repro_torch.models import DecoderLM
     from repro_torch.train import OptimizerConfig, TrainConfig, Trainer
     from repro_torch.train import optimizer as O
-    gc.collect()     # the earlier phases' weights
+    # the earlier phases' weights: the serve phases' engine (its params and
+    # KV pool) lives on in ``state`` until here
+    state.pop("engine", None)
+    state.pop("plain_model", None)
+    gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("qwen2-1.5b")
     toks = synthetic_corpus(TRAIN_SEQ, TRAIN_EXAMPLES, cfg.vocab_size,
@@ -3140,7 +3154,8 @@ def train(torch, bd, fa, pa, rg, rw, dev, state):
     info = {"arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "dtype": cfg.dtype, "seq": TRAIN_SEQ,
             "batch": TRAIN_BATCH, "page_stride": layout.stride,
-            "optimizer": TRAIN_OPT}
+            "optimizer": TRAIN_OPT,
+            "memory_at_start_gb": torch.cuda.memory_allocated() / 1e9}
     tmp = tempfile.mkdtemp(prefix="train_phase_")
     try:
         # 1. ten steps at full width, batches decoded on the card
@@ -3163,8 +3178,7 @@ def train(torch, bd, fa, pa, rg, rw, dev, state):
             save(blocking)
             save_s.append(time.perf_counter() - t)
         tr._save = timed_save
-        with _deterministic(torch):
-            res = tr.run()
+        res = tr.run()
         data.close()
         launches = bd.decode_columns.launches
         peak = torch.cuda.max_memory_allocated()
@@ -3214,8 +3228,8 @@ def train(torch, bd, fa, pa, rg, rw, dev, state):
             raise AssertionError(f"manifest {man['step']} / "
                                  f"{man['data_cursor']}")
         for (name, got), (_, want) in zip(
-                _named(restored), _named({"params": tr.params,
-                                          "opt": tr.opt_state})):
+                flatten_tree(restored), flatten_tree({"params": tr.params,
+                                                      "opt": tr.opt_state})):
             if got.dtype != want.dtype or got.shape != want.shape \
                     or not torch.equal(got, want):
                 raise AssertionError(f"restored {name} differs")
@@ -3280,11 +3294,6 @@ def _deterministic(torch):
         det.fill_uninitialized_memory = fill
 
 
-def _named(tree):
-    from repro_torch.checkpoint.format import flatten_tree
-    return list(flatten_tree(tree))
-
-
 def _restart(torch, cfg, opt, buf, dc, layout, dev, ckpt):
     """At RESTART_LAYERS layers of full width, under
     ``torch.use_deterministic_algorithms(True)``: 10 uninterrupted steps;
@@ -3333,6 +3342,7 @@ def _restart(torch, cfg, opt, buf, dc, layout, dev, ckpt):
 def _cpu_vs_card(torch, cfg, toks, dev):
     """One float32 step of a CPU_LAYERS-layer qwen2-1.5b at full width and
     vocabulary on the card and on the CPU, same params and batch."""
+    from repro_torch.checkpoint import flatten_tree
     from repro_torch.models import get_model
     from repro_torch.train import OptimizerConfig
     from repro_torch.train import optimizer as O
@@ -3355,7 +3365,8 @@ def _cpu_vs_card(torch, cfg, toks, dev):
         raise AssertionError(f"loss {float(l_dev)} on the card, "
                              f"{float(l_cpu)} on the CPU")
     worst = {}
-    for (name, gd), (_, gc_) in zip(_named(g_dev), _named(g_cpu)):
+    for (name, gd), (_, gc_) in zip(flatten_tree(g_dev),
+                                    flatten_tree(g_cpu)):
         gd = gd.cpu()
         scale = float(gc_.abs().max())
         excess = float(((gd - gc_).abs() - GRAD_RTOL * gc_.abs()).max())
@@ -3371,7 +3382,7 @@ def _cpu_vs_card(torch, cfg, toks, dev):
     new_dev, _ = O.adamw_update(O.tree_map(lambda t: t.to(dev), g_cpu),
                                 O.init_opt_state(p_dev, opt), p_dev, opt)
     param_err = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b)
-                    in zip(_named(new_dev), _named(new_cpu)))
+                    in zip(flatten_tree(new_dev), flatten_tree(new_cpu)))
     if param_err > PARAM_ATOL:
         raise AssertionError(f"updated params differ by {param_err}")
     return {"layers": CPU_LAYERS, "seq": CPU_SEQ, "dtype": "float32",

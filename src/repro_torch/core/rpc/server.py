@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as _cf
+import socket as _socket
 import threading
 from typing import Any, Callable, Dict, List, Optional, Set
 
@@ -630,10 +631,14 @@ class Server:
             done = self._flight_cv.wait_for(lambda: self._inflight == 0,
                                             timeout=timeout)
         for lsock in self._listen_socks:
-            try:
-                lsock.close()
-            except OSError:
-                pass
+            # shutdown wakes the accept thread: close alone leaves it blocked
+            # in accept() (Linux), holding the server and its handlers
+            for end in (lambda: lsock.shutdown(_socket.SHUT_RDWR),
+                        lsock.close):
+                try:
+                    end()
+                except OSError:
+                    pass
         self._listen_socks.clear()
         with self._conn_lock:
             conns = list(self._conns)
@@ -647,7 +652,6 @@ class Server:
     # -- TCP convenience -------------------------------------------------------
     def listen_tcp(self, host: str = "127.0.0.1", port: int = 0):
         """Bind + serve in background threads.  Returns (host, port, sock)."""
-        import socket as _socket
         from .transport import TcpTransport
         lsock = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
         lsock.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)

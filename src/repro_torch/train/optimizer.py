@@ -29,6 +29,8 @@ from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
 
+from ..checkpoint.format import flatten_tree
+
 Params = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -51,13 +53,9 @@ class OptimizerConfig:
 
 
 def leaves(tree) -> Iterator[torch.Tensor]:
-    """The tree's leaves in the JAX tree's order (sorted keys)."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from leaves(v)
-        else:
-            yield v
+    """The tree's leaves in the JAX tree's order (sorted keys), the order
+    of :func:`~repro_torch.checkpoint.format.flatten_tree`."""
+    return (v for _, v in flatten_tree(tree))
 
 
 def tree_map(fn: Callable, tree, *rest):

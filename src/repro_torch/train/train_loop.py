@@ -27,7 +27,9 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ..checkpoint.format import flatten_tree, unflatten_tree
 from ..checkpoint.manager import CheckpointManager
 from ..configs.base import ModelConfig
 from ..core.device import torch_device
@@ -46,23 +48,19 @@ class TrainConfig:
     watchdog_timeout_s: float = 600.0
 
 
-def _rebuild(tree, it: Iterator):
-    """``tree``'s structure with its leaves, in tree order, from ``it``."""
-    return {k: _rebuild(tree[k], it) if isinstance(tree[k], dict)
-            else next(it) for k in sorted(tree)}
-
-
 def _value_and_grad(model, params, batch) -> Tuple[torch.Tensor, Any]:
-    flat = list(O.leaves(params))
+    names, flat = zip(*flatten_tree(params))
     live = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
-        loss = model.loss(_rebuild(params, iter(live)), batch)
+        with record_function("train_step/forward"):
+            loss = model.loss(unflatten_tree(params, dict(zip(names, live))),
+                              batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     # a leaf the loss never reads (an untied embedding under embedding
     # inputs) gets the zero gradient JAX gives it
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
-    return loss.detach(), _rebuild(params, iter(grads))
+    return loss.detach(), unflatten_tree(params, dict(zip(names, grads)))
 
 
 def loss_and_grads(model, params, batch, grad_accum: int = 1
@@ -94,12 +92,16 @@ def loss_and_grads(model, params, batch, grad_accum: int = 1
 def make_train_step(model, opt_cfg: O.OptimizerConfig
                     ) -> Callable[..., Tuple[Any, Any, torch.Tensor]]:
     """(params, opt_state, batch) -> (params', opt_state', loss), the
-    parameters and moments updated in place."""
+    parameters and moments updated in place.  The forward and the optimizer
+    run in ``torch.profiler`` ranges named ``train_step/forward`` and
+    ``train_step/optimizer`` (no cost when no profiler runs)."""
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(model, params, batch,
                                      opt_cfg.grad_accum)
-        grads, opt_state = O.compress_grads(grads, opt_state, opt_cfg)
-        params, opt_state = O.adamw_update(grads, opt_state, params, opt_cfg)
+        with record_function("train_step/optimizer"):
+            grads, opt_state = O.compress_grads(grads, opt_state, opt_cfg)
+            params, opt_state = O.adamw_update(grads, opt_state, params,
+                                               opt_cfg)
         return params, opt_state, loss
 
     return train_step

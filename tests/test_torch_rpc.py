@@ -28,8 +28,10 @@
 Weights come from the JAX model (``params_from_numpy``) on
 ``reduced_config`` in float32; scores are held at 3e-5 / 1e-4.
 """
+import gc
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -413,6 +415,31 @@ def test_drain_finishes_inflight_and_answers_health(engines):
     finally:
         ch.close()
         impl.close()
+
+
+def test_drain_ends_the_accept_thread(engines):
+    """A drained server's accept thread ends, so nothing keeps the server
+    (its handlers, their engine and KV pool) alive: closing a listening
+    socket alone leaves the thread blocked in ``accept()`` on Linux."""
+    _, engine = engines
+    impl = InferenceImpl(engine)
+    server = build_server(engine, impl=impl)
+    before = set(threading.enumerate())
+    server.listen_tcp()
+    accept = [t for t in threading.enumerate()
+              if t not in before and t.name == "bebop-rpc-accept"]
+    assert len(accept) == 1
+    time.sleep(0.2)     # the thread blocks in accept()
+    try:
+        assert server.drain(timeout=30)
+        accept[0].join(timeout=10)
+        assert not accept[0].is_alive()
+    finally:
+        impl.close()
+    ref = weakref.ref(server)
+    del server, impl
+    gc.collect()
+    assert ref() is None
 
 
 # -- the launcher -------------------------------------------------------------------
