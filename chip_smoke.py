@@ -36,7 +36,11 @@ serving paths at full width, with weights drawn from a seeded
   AdamW steps on Bebop pages decoded on the card by the page decode
   kernel, checkpointed, restarted, held to the CPU at float32, and its
   trained checkpoint served on the paged kernels; then
-  ``launch/train.py`` as a child process.
+  ``launch/train.py`` as a child process;
+* the multi-device tooling (``mesh``): the model on DTensors over a (1, 1)
+  card mesh, a ``Trainer(mesh=)`` checkpoint restored onto the mesh and
+  served on the paged kernels, and two cells of ``launch/dryrun.py`` (256
+  and 512 fake ranks, no card) as subprocesses beside it.
 
 Each path must launch its kernels (counts set to 0 just before it and
 read just after) and match a replay through the plain versions
@@ -260,6 +264,7 @@ def main(argv=None) -> int:
     Phase("vlm_prefill")(lambda: vlm_prefill(torch, fa, dev, state))
     Phase("encdec_serve")(lambda: encdec_serve(torch, bd, fa, dev, state))
     Phase("train")(lambda: train(torch, bd, fa, pa, rg, rw, dev, state))
+    Phase("mesh")(lambda: mesh(torch, bd, pa, dev, state))
     Phase("timing")(lambda: timing(torch, bd, pa, fa, rg, rw, dev, state))
     emit(json.dumps({"kernels": state["kernels"]}))
     emit(json.dumps({"ok": True, "device": {
@@ -3457,6 +3462,274 @@ def _launcher_train(src):
                              f"{out.stdout[-500:]} {out.stderr[-1500:]}")
     return {"exit_code": out.returncode,
             "seconds": time.perf_counter() - t0, "lines": lines}
+
+
+# -- mesh ----------------------------------------------------------------------
+
+MESH_BATCH, MESH_SEQ = 2, 256       # the DTensor forward's tokens
+MESH_STEPS = 2                      # the Trainer(mesh=) run, RESTART_LAYERS deep
+MESH_PROMPTS, MESH_NEW = 4, 8       # the restored weights' greedy requests
+#: the dry run as a user runs it: one train cell on the 256-rank mesh, one
+#: long-context decode cell on the 512-rank mesh
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"),
+                ("rwkv6-7b", "long_500k", "multi"))
+#: qwen2-1.5b's MODEL_FLOPS (6 N D) over the traced per-device FLOPs x 256:
+#: full remat recomputes the forward (8 N D of products) and the attention
+#: adds its own, so about 6/8 less the attention's share; a count at the
+#: global shapes would read 1/256 of that
+USEFUL_RANGE = (0.5, 0.95)
+
+
+def mesh(torch, bd, pa, dev, state):
+    """The multi-device tooling on one card: ``make_host_mesh()`` (a CUDA
+    (1, 1) mesh over a one-rank NCCL group); full-width qwen2-1.5b (bf16,
+    plain attention) logits with its params placed by ``param_specs`` on
+    that mesh, in ``tp`` and in ``fsdp`` with the per-layer gather, held
+    bit-equal to the plain forward; a ``Trainer(mesh=)`` at
+    RESTART_LAYERS layers of full width whose manifest records the mesh,
+    its checkpoint restored onto the mesh by ``shardings=`` (every leaf a
+    DTensor with the requested placements, its local tensor the saved
+    bits), and the restored weights served on the paged path (page decode,
+    paged decode and prefill attention) with the greedy tokens the same
+    weights gave before the save; and ``python -m
+    repro_torch.launch.dryrun`` for DRYRUN_CELLS as subprocesses, which run
+    on the CPU beside the card work."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint import CheckpointManager, flatten_tree
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import (DataConfig, example_layout,
+                                  synthetic_corpus, write_example_pages)
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch import shardings as S
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import OptimizerConfig, TrainConfig, Trainer
+    from repro_torch.train import optimizer as O
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mesh_phase_")
+    procs = [_dryrun_start(state["src"], cell, tmp) for cell in DRYRUN_CELLS]
+    info = {"dryrun_cells": [list(c) for c in DRYRUN_CELLS]}
+    try:
+        t0 = time.perf_counter()
+        m = make_host_mesh()
+        info["mesh"] = {"shape": list(m.shape),
+                        "axes": list(m.mesh_dim_names),
+                        "device_type": m.device_type,
+                        "backend": dist.get_backend()}
+        if tuple(m.shape) != (1, 1) or tuple(m.mesh_dim_names) != (
+                "data", "model") or m.device_type != dev.type:
+            raise AssertionError(f"host mesh {info['mesh']}")
+        # 1. DTensor logits, bit-equal to the plain forward
+        cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                                  attention_impl="reference")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+        tokens = torch.randint(0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ),
+                               generator=gen, device=dev)
+        params = DecoderLM(cfg).init(SEED + 30, dev)
+        with torch.no_grad():
+            plain = DecoderLM(cfg).logits(params, {"tokens": tokens})
+            forward = {}
+            for mode in ("tp", "fsdp"):
+                mcfg = dataclasses.replace(
+                    cfg, fsdp_per_layer_gather=mode == "fsdp")
+                specs = S.param_specs(mcfg, params, m, mode=mode)
+                dparams = S.distribute(params, m, specs)
+                dtokens = S.distribute({"tokens": tokens}, m, S.batch_specs(
+                    mcfg, ShapeConfig("mesh", MESH_SEQ, MESH_BATCH,
+                                      "prefill"), m, mode=mode))
+                with implicit_replication():
+                    out = DecoderLM(mcfg).logits(dparams, dtokens)
+                if not isinstance(out, DTensor):
+                    raise AssertionError(f"{mode}: logits not a DTensor")
+                got = out.to_local()
+                sharded = sum(1 for _, s in _spec_leaves(specs)
+                              if any(e is not None for e in s))
+                forward[mode] = {
+                    "bit_equal": bool(torch.equal(got, plain)),
+                    "max_abs_diff": float((got.float()
+                                           - plain.float()).abs().max()),
+                    "sharded_leaves": sharded}
+                if not forward[mode]["bit_equal"]:
+                    raise AssertionError(f"{mode} DTensor logits differ: "
+                                         f"{forward[mode]}")
+                del dparams, out, got
+        info["dtensor_forward"] = dict(forward, batch=MESH_BATCH,
+                                       seq=MESH_SEQ, layers=cfg.num_layers,
+                                       dtype=cfg.dtype)
+        del params, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["forward_s"] = time.perf_counter() - t0
+        # 2. Trainer(mesh=), the checkpoint restored onto the mesh, served
+        t0 = time.perf_counter()
+        rcfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                                   num_layers=RESTART_LAYERS)
+        toks = synthetic_corpus(TRAIN_SEQ, TRAIN_EXAMPLES, rcfg.vocab_size,
+                                seed=SEED + 31)
+        buf = write_example_pages(TRAIN_SEQ, toks,
+                                  records_per_page=TRAIN_PAGE)
+        dc = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        records_per_page=TRAIN_PAGE)
+        held = []
+        data = _card_batches(torch, buf, dc, example_layout(TRAIN_SEQ), dev,
+                             held)
+        ckpt = os.path.join(tmp, "ckpt")
+        tr = Trainer(rcfg, OptimizerConfig(**TRAIN_OPT), TrainConfig(
+            steps=MESH_STEPS, ckpt_every=10 * MESH_STEPS, ckpt_dir=ckpt,
+            log_every=1, seed=SEED), data=data, device=dev, mesh=m)
+        res = tr.run()
+        data.close()
+        man = CheckpointManager(ckpt).manifest(MESH_STEPS)
+        if res["status"] != "done" or [int(x) for x in man["mesh_shape"]] \
+                != [1, 1] or list(man["mesh_axes"]) != ["data", "model"]:
+            raise AssertionError(f"trainer {res['status']}, manifest mesh "
+                                 f"{man['mesh_shape']} {man['mesh_axes']}")
+        saved = {"params": tr.params, "opt": tr.opt_state}
+        before, launches_before = _mesh_serve(torch, bd, pa, dev, rcfg,
+                                              tr.params)
+        pspecs = S.param_specs(rcfg, tr.params, m)
+        specs = {"params": pspecs, "opt": S.opt_state_specs(
+            rcfg, pspecs, tr.params, m)}
+        template = O.tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            saved)
+        shardings = S.named(m, specs)
+        restored, _ = CheckpointManager(ckpt).restore(
+            MESH_STEPS, template, shardings=shardings)
+        want_pl = dict(_spec_leaves(S.tree_map_specs(
+            lambda n: tuple(n.placements), shardings)))
+        for (name, got), (_, want) in zip(flatten_tree(restored),
+                                          flatten_tree(saved)):
+            local = got.to_local() if isinstance(got, DTensor) else None
+            if local is None or local.device.type != dev.type \
+                    or tuple(got.placements) != want_pl[name] \
+                    or local.dtype != want.dtype \
+                    or not torch.equal(local, want):
+                raise AssertionError(
+                    f"restored {name} is not the saved leaf placed "
+                    f"{want_pl[name]}: {getattr(got, 'placements', None)}, "
+                    f"{None if local is None else local.device}")
+        del tr, saved
+        after, launches_after = _mesh_serve(
+            torch, bd, pa, dev, rcfg,
+            O.tree_map(lambda t: t.to_local(), restored["params"]))
+        if after != before:
+            raise AssertionError("the restored weights' greedy tokens "
+                                 "differ from the saved weights'")
+        info["checkpoint"] = {
+            "layers": RESTART_LAYERS, "steps": MESH_STEPS,
+            "manifest_mesh_shape": [int(x) for x in man["mesh_shape"]],
+            "manifest_mesh_axes": list(man["mesh_axes"]),
+            "leaves_restored_as_dtensors": len(want_pl),
+            "leaves_sharded": sum(1 for p in want_pl.values()
+                                  if any(not q.is_replicate() for q in p)),
+            "served_tokens_equal": True,
+            "tokens": sum(len(t) for t in after),
+            "launches_before_save": launches_before,
+            "launches_after_restore": launches_after}
+        del restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["checkpoint_s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+        # 3. the dry runs
+        t0 = time.perf_counter()
+        info["dryrun"] = [_dryrun_finish(p, cell, tmp)
+                          for p, cell in zip(procs, DRYRUN_CELLS)]
+        info["dryrun_wait_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    info["card"] = state["smi"]
+    return info
+
+
+def _spec_leaves(tree, path=""):
+    """(slash path, leaf) of a nested dict, specs and tuples as leaves."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _spec_leaves(v, f"{path}/{k}" if path else k)]
+    return [(path, tree)]
+
+
+def _mesh_serve(torch, bd, pa, dev, cfg, params):
+    """MESH_PROMPTS greedy requests of MESH_NEW tokens, one after another,
+    through an Engine on ``params`` (plain CUDA tensors): page decode,
+    paged batcher, paged attention.  Returns (token lists, launches); fails unless the three
+    kernels of the path launched."""
+    from repro_torch.serving import (Engine, InferenceImpl, ServeConfig,
+                                     decode_token_page, encode_prompt_page)
+    counters = (bd.decode_columns, pa.paged_attention,
+                pa.paged_prefill_attention)
+    engine = Engine(cfg, ServeConfig(), params=params, device=dev)
+    impl = InferenceImpl(engine)
+    for fn in counters:
+        fn.launches = 0
+    try:
+        # one request at a time: the steps' composition, and so every
+        # rounding, repeats from one engine to the next
+        out = [impl.infer(encode_prompt_page(p[None]),
+                          max_new_tokens=MESH_NEW)
+               for p in _prompts(cfg.vocab_size)[:MESH_PROMPTS]]
+    finally:
+        impl.close()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels not launched: {launches}")
+    return [decode_token_page(r["page"])[0].tolist() for r in out], launches
+
+
+def _dryrun_start(src, cell, tmp):
+    arch, shape, mesh_kind = cell
+    out = os.path.join(tmp, f"dryrun_{arch}_{shape}_{mesh_kind}")
+    env = dict(os.environ, PYTHONPATH=src)
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh_kind, "--out", out], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _dryrun_finish(proc, cell, tmp):
+    """One dry-run record: status ok, the mesh's rank count, and for a
+    train cell a useful ratio in USEFUL_RANGE."""
+    arch, shape, mesh_kind = cell
+    try:
+        log, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    path = os.path.join(tmp, f"dryrun_{arch}_{shape}_{mesh_kind}",
+                        f"{arch}__{shape}__{mesh_kind}__baseline.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise AssertionError(f"dryrun {cell} exited {proc.returncode}: "
+                             f"{log[-1500:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    chips = 512 if mesh_kind == "multi" else 256
+    if rec["status"] != "ok" or rec["chips"] != chips:
+        raise AssertionError(f"dryrun {cell}: {rec.get('status')} on "
+                             f"{rec.get('chips')} ranks")
+    if shape == "train_4k" and not (
+            USEFUL_RANGE[0] <= rec["useful_ratio"] <= USEFUL_RANGE[1]):
+        raise AssertionError(f"dryrun {cell}: useful ratio "
+                             f"{rec['useful_ratio']} outside {USEFUL_RANGE}")
+    keys = ("chips", "lower_s", "compile_s", "flops_per_device",
+            "bytes_per_device", "collective_bytes", "collective_counts",
+            "compute_s", "memory_s", "collective_s", "dominant",
+            "step_time_lower_bound_s", "useful_ratio", "model_flops",
+            "argument_size_in_bytes", "temp_size_in_bytes")
+    return {"cell": list(cell), **{k: rec[k] for k in keys}}
 
 
 # -- timing ------------------------------------------------------------------

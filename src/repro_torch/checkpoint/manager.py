@@ -13,9 +13,10 @@ the same files.  Fault-tolerance contract:
     is in flight; a new save waits for the previous.
   * **Restore**: every leaf comes back in its stored dtype (float32
     moments, the int32 step, bfloat16 parameters as saved) on the device
-    the caller names.  Mesh shape/axes are recorded in the manifest; the
-    elastic restore onto target shardings (JAX ``shardings=``) waits for
-    the port's multi-device tooling.
+    the caller names, or, given ``shardings`` (a tree from
+    ``launch.shardings.named``), as a DTensor placed on its mesh — the
+    elastic restore onto a mesh other than the one that saved, which is
+    recorded in the manifest.
   * **Retention**: keep the newest ``keep`` checkpoints, delete older.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from . import format as F
 
@@ -129,10 +131,15 @@ class CheckpointManager:
         with open(path, "rb") as f:
             return F.decode_manifest(f.read())
 
-    def restore(self, step: int, template: Any, *,
-                device=None) -> Tuple[Any, dict]:
+    def restore(self, step: int, template: Any, *, device=None,
+                shardings: Any = None) -> Tuple[Any, dict]:
         """Load ``step`` into the structure of ``template``: tensors of
-        their stored dtypes, on ``device`` (the CPU when None)."""
+        their stored dtypes, on ``device`` (the CPU when None).
+
+        ``shardings``: optional tree of ``NamedSharding`` (mesh,
+        placements) leaves; each leaf is then distributed onto its mesh,
+        as JAX ``device_put``s each leaf to its sharding.
+        """
         man = self.manifest(step)
         if not man.get("complete", True):
             raise IOError(f"checkpoint step {step} is incomplete")
@@ -145,14 +152,27 @@ class CheckpointManager:
                 tensors[name] = arr
         if device is not None:
             tensors = {k: v.to(device) for k, v in tensors.items()}
-        return F.unflatten_tree(template, tensors), man
+        tree = F.unflatten_tree(template, tensors)
+        if shardings is not None:
+            tree = _place(tree, shardings)
+        return tree, man
 
-    def restore_latest(self, template: Any, *, device=None
-                       ) -> Optional[Tuple[Any, dict]]:
+    def restore_latest(self, template: Any, *, device=None,
+                       shardings: Any = None) -> Optional[Tuple[Any, dict]]:
         step = self.latest_step()
         if step is None:
             return None
-        return self.restore(step, template, device=device)
+        return self.restore(step, template, device=device,
+                            shardings=shardings)
+
+
+def _place(tree, shardings):
+    """Each leaf distributed by the ``NamedSharding`` beside it."""
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    mesh = shardings.mesh
+    return distribute_tensor(tree.to(mesh.device_type), mesh,
+                             shardings.placements)
 
 
 def _host_copy(leaf):

@@ -1,7 +1,9 @@
 """Architecture configs (every one the JAX package registers) + the
 registry."""
-from .base import (ModelConfig, MoEConfig, get_config,  # noqa: F401
-                   reduced_config, register)
+from .base import (SHAPES, ModelConfig, MoEConfig,  # noqa: F401
+                   ShapeConfig, all_configs, cells_for, get_config,
+                   has_decoder, reduced_config, register,
+                   supports_long_context)
 
 _LOADED = False
 

@@ -95,6 +95,71 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    def param_count(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6·N·D)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.rwkv:
+            # time-mix (r,k,v,w,g + output) + channel-mix + loras + norms
+            att = d * self.q_dim * 4 + d * d + 6 * d
+            lora = 5 * (d * self.time_mix_extra_dim * 2) \
+                + d * self.decay_extra_dim * 2
+            ffn = 2 * d * f + d * d
+            return emb + L * (att + lora + ffn)
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.moe is not None:
+            m = self.moe
+            routed = m.num_experts * 3 * d * m.d_expert
+            shared = m.num_shared * 3 * d * m.d_expert
+            router = d * m.num_experts
+            ffn = routed + shared + router
+        else:
+            n_mats = 3 if self.mlp_act in ("swiglu", "geglu") else 2
+            ffn = n_mats * d * f
+        layers = L * (attn + ffn)
+        if self.encoder_layers:
+            layers += self.encoder_layers * (attn + 3 * d * f) \
+                + self.num_layers * attn  # cross-attention
+        if self.block_pattern:
+            # hybrid: recurrent blocks replace attention in pattern ratio
+            rec = 2 * d * (self.lru_width or d) + 3 * (self.lru_width or d) \
+                + (self.lru_width or d) * self.conv_width
+            n_rec = sum(1 for b in self.block_pattern if b == "rec")
+            n_attn = len(self.block_pattern) - n_rec
+            per_super = n_rec * (rec + ffn) + n_attn * (attn + ffn)
+            n_super = self.num_layers // len(self.block_pattern)
+            tail = sum((rec if b == "rec" else attn) + ffn
+                       for b in self.tail_pattern)
+            layers = n_super * per_super + tail
+        return emb + layers
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only routed top-k count)."""
+        if self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        m = self.moe
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        active_ffn = (m.top_k + m.num_shared) * 3 * d * m.d_expert \
+            + d * m.num_experts
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return emb + L * (attn + active_ffn)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
@@ -109,6 +174,31 @@ def get_config(name: str) -> ModelConfig:
         from . import load_all  # late import populates registry
         load_all()
     return _REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    from . import load_all
+    load_all()
+    return dict(_REGISTRY)
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """long_500k runs only for sub-quadratic archs (ssm / hybrid)."""
+    return cfg.family in ("ssm", "hybrid")
+
+
+def has_decoder(cfg: ModelConfig) -> bool:
+    return True  # every assigned arch has a decode path (enc-dec included)
+
+
+def cells_for(cfg: ModelConfig):
+    """The (arch x shape) dry-run cells this arch participates in."""
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not supports_long_context(cfg):
+            continue
+        out.append(s)
+    return out
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:

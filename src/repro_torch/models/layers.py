@@ -14,10 +14,13 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_plain
+from . import sharded as SH
+from .sharded import placed_like
 
 Params = Dict[str, Any]
 
@@ -195,15 +198,23 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {sections} do not sum to "
                          f"head_dim {hd} // 2")
     freqs = _rope_freqs(hd, theta, x.device)                   # [hd/2]
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))               # [hd/2]
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # [hd/2]
     pos = positions3[sec_id]                                   # [hd/2,B,T]
     angles = pos.permute(1, 2, 0).float() * freqs              # [B,T,hd/2]
     cos, sin = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def merge_heads(o: torch.Tensor, x: torch.Tensor, w: torch.Tensor
+                ) -> torch.Tensor:
+    """[B, H, T, hd] -> [B, T, H * hd], the input of the row-parallel
+    output projection (on DTensors placed as the column-parallel
+    ``x @ w`` placed its features)."""
+    b, h, t, hd = o.shape
+    return SH.like_columns(o.transpose(1, 2).reshape(b, t, h * hd), x, w)
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -215,6 +226,9 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    # q's heads split into (kv heads, group) in the attention, so all
+    # three need the kv heads to divide
+    q, k, v = (SH.even_heads(y, cfg.num_kv_heads) for y in (q, k, v))
     q = q.reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
     k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
@@ -239,6 +253,15 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Full-sequence attention: the query-chunked plain path for long
     sequences under ``attention_impl="reference"`` (as in JAX), else
     ``ops.attention``, which takes the flash kernel on the card."""
+    if isinstance(q, DTensor):
+        # the dry run's sharded step: attention is independent across
+        # batch rows and heads, so it runs on each rank's shard (DTensor
+        # cannot batch a product over two sharded dims)
+        heads = {0: 0, 1: 1}
+        return SH.on_shards(
+            lambda q, k, v: (_attend(q, k, v, cfg, causal=causal,
+                                     window=window),),
+            (q, k, v), (0, 1), (heads,))[0]
     if q.shape[2] >= cfg.attention_chunk_threshold \
             and cfg.attention_impl == "reference":
         return _chunked_attention(q, k, v, cfg, causal=causal, window=window)
@@ -250,12 +273,10 @@ def attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence attention (scoring; training in JAX)."""
-    b, t, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _pos_embed(q, k, cfg, positions)
     o = _attend(q, k, v, cfg, causal=causal, window=window)
-    o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
-    return o @ p["wo"]
+    return placed_like(merge_heads(o, x, p["wq"]) @ p["wo"], x)
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -297,12 +318,10 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _pos_embed(q, k, cfg, positions)
     o = _attend(q, k, v, cfg, causal=True, window=window)
-    o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
-    out = o @ p["wo"]
+    out = placed_like(merge_heads(o, x, p["wq"]) @ p["wo"], x)
     pad = cache_len - t
     if pad > 0:
-        k = F.pad(k, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, pad))
+        k, v = SH.pad_slots(k, v, pad)
     return out, {"k": k.contiguous(), "v": v.contiguous()}
 
 
@@ -329,41 +348,42 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     s = k.shape[2]
     if window is not None and s == window:
         slot = pos % window
-        k[:, :, slot] = k_new[:, :, 0]
-        v[:, :, slot] = v_new[:, :, 0]
         # slot i holds absolute position pos - ((slot - i) mod window)
         idx = torch.arange(window, device=x.device)
         valid = (pos - torch.remainder(slot - idx, window)) >= 0
-        g = cfg.num_heads // cfg.num_kv_heads
-        qr = q.reshape(b, cfg.num_kv_heads, g, t, cfg.head_dim)
-        logits = torch.einsum("bhgqd,bhsd->bhgqs", qr.float(),
-                              k.float()) * cfg.head_dim ** -0.5
-        logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
-        probs = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bhgqs,bhsd->bhgqd", probs, v.float())
-        o = o.reshape(b, cfg.num_heads, t, cfg.head_dim)
     else:
         slot = min(pos, s - 1)
-        k[:, :, slot] = k_new[:, :, 0]
-        v[:, :, slot] = v_new[:, :, 0]
-        o = _decode_attend(q, k, v, cfg, pos)
-    o = o.to(x.dtype).transpose(1, 2).reshape(b, t, cfg.q_dim)
-    return o @ p["wo"], cache
+        valid = torch.arange(s, device=x.device) <= pos
+    SH.write_slot(k, k_new, slot)
+    SH.write_slot(v, v_new, slot)
+    if isinstance(q, DTensor) and Shard(2) not in k.placements:
+        # the dry run's sharded step with the cache split by batch and
+        # heads: each rank attends over its shard (DTensor cannot batch a
+        # product over two sharded dims); a cache split along the sequence
+        # stays a DTensor product, its softmax gathering the scores
+        heads = {0: 0, 1: 1}
+        o = SH.on_shards(lambda q, k, v: (_decode_attend(q, k, v, cfg,
+                                                          valid),),
+                          (q, k, v), (0, 1), (heads,))[0]
+    else:
+        o = _decode_attend(q, k, v, cfg, valid)
+    return placed_like(merge_heads(o.to(x.dtype), x, p["wq"]) @ p["wo"],
+                       x), cache
 
 
 def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   cfg: ModelConfig, pos: int) -> torch.Tensor:
-    """Masked decode attention: only cache slots <= pos participate."""
-    b = q.shape[0]
-    g = cfg.num_heads // cfg.num_kv_heads
-    qr = q.reshape(b, cfg.num_kv_heads, g, 1, cfg.head_dim)
+                   cfg: ModelConfig, valid: torch.Tensor) -> torch.Tensor:
+    """Masked decode attention over the cache slots where ``valid``
+    [S]."""
+    b, hq, t, hd = q.shape
+    hkv = k.shape[1]
+    qr = q.reshape(b, hkv, hq // hkv, t, hd)
     logits = torch.einsum("bhgqd,bhsd->bhgqs", qr.float(),
                           k.float()) * cfg.head_dim ** -0.5
-    valid = torch.arange(k.shape[2], device=q.device) <= pos
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgqs,bhsd->bhgqd", probs, v.float())
-    return o.reshape(b, cfg.num_heads, 1, cfg.head_dim)
+    return o.reshape(b, hq, t, hd)
 
 
 def attention_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -418,38 +438,47 @@ def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor,
     memory [B, S, D] (no position embedding, no biases)."""
     b, t, _ = x.shape
     s = memory.shape[1]
-    q = (x @ p["wq"]).reshape(b, t, cfg.num_heads, cfg.head_dim) \
-        .transpose(1, 2)
-    k = (memory @ p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim) \
-        .transpose(1, 2)
-    v = (memory @ p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim) \
-        .transpose(1, 2)
+    q = SH.even_heads(x @ p["wq"], cfg.num_kv_heads) \
+        .reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+    k = SH.even_heads(memory @ p["wk"], cfg.num_kv_heads) \
+        .reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = SH.even_heads(memory @ p["wv"], cfg.num_kv_heads) \
+        .reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     o = _attend(q, k, v, cfg, causal=False, window=None)
-    o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
-    return o @ p["wo"]
+    return placed_like(merge_heads(o, x, p["wq"]) @ p["wo"], x)
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate = x @ p["w_gate"]
     act = F.gelu(gate, approximate="tanh") if cfg.mlp_act == "geglu" \
         else F.silu(gate)
-    return (act * (x @ p["w_up"])) @ p["w_down"]
+    return placed_like((act * (x @ p["w_up"])) @ p["w_down"], x)
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = p["embed"][tokens]
+    if isinstance(p["embed"], DTensor):
+        # vocab-parallel lookup (masked local rows, then one reduction of
+        # [B, T, D]); indexing would gather the whole table first
+        x = F.embedding(tokens, p["embed"])
+    else:
+        x = p["embed"][tokens]
     if cfg.tie_embeddings:
         # gemma-style scale, rounded to the activation dtype first as the
         # JAX model rounds it (a host scalar: no device round trip)
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
-    return x
+    return placed_like(x, tokens)
 
 
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = x @ p["embed"].t()
+    w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
+    if isinstance(x, DTensor):
+        # one product over the flattened rows: a prefill's last position
+        # x[:, -1:] is strided, and a DTensor product would batch over a
+        # copy of the weight for every row
+        logits = (x.reshape(-1, x.shape[-1]) @ w).view(*x.shape[:-1],
+                                                       w.shape[-1])
     else:
-        logits = x @ p["lm_head"]
+        logits = x @ w
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
@@ -459,9 +488,12 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _nll_sum(lf: torch.Tensor, labels: torch.Tensor):
     """(sum of -log p(label), count of labels) over float32 logits
     ``[..., V]``; a label of -1 is ignored."""
-    lse = torch.logsumexp(lf, dim=-1)
     idx = labels.clamp_min(0).long()[..., None]
-    picked = torch.gather(lf, -1, idx)[..., 0]
+    if isinstance(lf, DTensor):
+        lse, picked = SH.vocab_parallel_nll(lf, idx, labels)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = torch.gather(lf, -1, idx)[..., 0]
     mask = (labels >= 0).float()
     return torch.sum((lse - picked) * mask), torch.sum(mask)
 

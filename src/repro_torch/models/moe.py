@@ -35,8 +35,10 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from .sharded import placed_like
 
 Params = Dict[str, Any]
 
@@ -99,14 +101,14 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     return moe_ffn_global(p, x, cfg)
 
 
-def moe_ffn_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GShard-style grouped dispatch: each batch row is its own dispatch
-    group (the cumulative sum runs over that row's T * k slots)."""
+def _dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Route each batch row's tokens and scatter them into the per-expert
+    buffer: (buf [B, E, C, D], the slots' (row, expert, position) index
+    and weights, probs, expert ids)."""
     m = cfg.moe
     b, t, d = x.shape
     e, k = m.num_experts, m.top_k
-    probs, weights, idx = route(p, x, cfg)                    # [B, T, k]
+    probs, weights, idx = route({"router": router}, x, cfg)  # [B, T, k]
     cap = capacity(t, cfg)
     flat_idx = idx.reshape(b, t * k)
     safe_pos, keep = _slots(flat_idx, e, cap)                 # [B, T*k]
@@ -118,37 +120,67 @@ def moe_ffn_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig
     # each slot takes one kept token; a dropped one adds zero to slot 0
     buf = torch.zeros((b, e, cap, d), dtype=x.dtype, device=x.device)
     buf.index_put_((bidx, flat_idx, safe_pos), contrib, accumulate=True)
-    out_buf = _experts(p, buf)
-    expert_out = out_buf[bidx, flat_idx, safe_pos] \
-        * flat_w[..., None].to(out_buf.dtype)                 # [B, T*k, D]
-    out = expert_out.reshape(b, t, k, d).sum(2)
-    if m.num_shared:
+    return buf, (bidx, flat_idx, safe_pos), flat_w, probs, idx
+
+
+def _combine(out_buf: torch.Tensor, slots, flat_w: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """Each token's k expert rows, weighted and summed: [B, T, D]."""
+    b, _, _, d = out_buf.shape
+    expert_out = out_buf[slots] * flat_w[..., None].to(out_buf.dtype)
+    return expert_out.reshape(b, -1, k, d).sum(2)             # [B, T, D]
+
+
+def moe_ffn_grouped(p: Params, x: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style grouped dispatch: each batch row is its own dispatch
+    group (the cumulative sum runs over that row's T * k slots)."""
+    if isinstance(x, DTensor):
+        return _grouped_sharded(p, x, cfg)
+    buf, slots, flat_w, probs, idx = _dispatch(x, p["router"], cfg)
+    out = _combine(_experts(p, buf), slots, flat_w, cfg.moe.top_k)
+    if cfg.moe.num_shared:
         out = out + _shared(p, x)
     return out, _aux(probs, idx, cfg)
+
+
+def _grouped_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouped dispatch on DTensors (the dry run's sharded step): each
+    rank routes, scatters and combines whole rows (x gathered along every
+    dim but the rows'); the expert products run on the DTensor buffer
+    against the sharded expert weights (tensor- or expert-parallel, as the
+    specs place them).  The aux loss's two means are sums over the row
+    shards, reduced, then divided, so it is the whole batch's."""
+    mesh = x.device_mesh
+    rows = [q if q == Shard(0) else Replicate() for q in x.placements]
+    over_rows = [Partial() if q == Shard(0) else Replicate() for q in rows]
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim) \
+        .to_local(grad_placements=over_rows)
+    buf, slots, flat_w, probs, idx = _dispatch(
+        x.redistribute(mesh, rows).to_local(), router, cfg)
+    buf = DTensor.from_local(buf, mesh, rows, run_check=False)
+    out_buf = _experts(p, buf).redistribute(mesh, rows).to_local()
+    out = DTensor.from_local(_combine(out_buf, slots, flat_w,
+                                      cfg.moe.top_k), mesh, rows,
+                             run_check=False)
+    if cfg.moe.num_shared:
+        out = out + _shared(p, x)
+    e = cfg.moe.num_experts
+    n = x.shape[0] * x.shape[1]
+    sums = [DTensor.from_local(s, mesh, over_rows, run_check=False)
+            .redistribute(mesh, [Replicate()] * mesh.ndim) / n
+            for s in (F.one_hot(idx[..., 0].reshape(-1), e).float().sum(0),
+                      probs.reshape(-1, e).sum(0))]
+    aux = (sums[0] * sums[1]).sum() * e * cfg.moe.router_aux_coef
+    return placed_like(out, x), aux
 
 
 def moe_ffn_global(p: Params, x: torch.Tensor, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global dispatch: one cumulative sum over all B * T tokens, so one
-    row's padding can take a later row's slot (the JAX baseline)."""
+    row's padding can take a later row's slot (the JAX baseline) — the
+    grouped dispatch of the batch as one row of B * T tokens."""
     b, t, d = x.shape
-    xt = x.reshape(b * t, d)
-    m = cfg.moe
-    n_tok, e, k = b * t, m.num_experts, m.top_k
-    probs, weights, idx = route(p, xt, cfg)                   # [N, k]
-    cap = capacity(n_tok, cfg)
-    flat_idx = idx.reshape(-1)
-    safe_pos, keep = _slots(flat_idx, e, cap)                 # [N*k]
-    flat_w = weights.reshape(-1) * keep.to(weights.dtype)
-    tok_idx = torch.arange(n_tok, device=xt.device).repeat_interleave(k)
-    contrib = torch.where(keep[:, None], xt[tok_idx],
-                          torch.zeros((), dtype=xt.dtype, device=xt.device))
-    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
-    buf.index_put_((flat_idx, safe_pos), contrib, accumulate=True)
-    out_buf = _experts(p, buf)
-    expert_out = out_buf[flat_idx, safe_pos] \
-        * flat_w[:, None].to(out_buf.dtype)                   # [N*k, D]
-    out = expert_out.reshape(n_tok, k, d).sum(1)
-    if m.num_shared:
-        out = out + _shared(p, xt)
-    return out.reshape(b, t, d), _aux(probs, idx, cfg)
+    out, aux = moe_ffn_grouped(p, x.reshape(1, b * t, d), cfg)
+    return out.reshape(b, t, d), aux

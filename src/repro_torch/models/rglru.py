@@ -21,10 +21,13 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from . import sharded as SH
 from .layers import Initializer, Params
+from .sharded import placed_like
 
 _C = 8.0
 
@@ -94,15 +97,22 @@ def recurrent_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     rec_in = x @ p["w_rec"]
     rec_in, new_conv = _causal_conv(rec_in, p["conv"], p["conv_b"],
                                     st.get("conv"))
-    a, gated = rglru_gates(p, rec_in)
+    # the gates' products are column-parallel: on DTensors their input
+    # (channels split by w_rec) is gathered to the stream's layout first
+    a, gated = rglru_gates(p, placed_like(rec_in, x))
     if x.shape[1] == 1 and "h" in st:
         h = a[:, 0] * st["h"] + gated[:, 0]
         rec_out = h[:, None]
         new_h = h
+    elif isinstance(gated, DTensor):
+        # the scan runs on each rank's rows and channels
+        rec_out, new_h = SH.on_shards(
+            lambda g, a: ops.rglru(g, a, impl=cfg.attention_impl),
+            (gated, a), (0, 2), ({0: 0, 2: 2}, {0: 0, 2: 1}))
     else:
         rec_out, new_h = ops.rglru(gated, a, impl=cfg.attention_impl)
     rec_out = rec_out.to(x.dtype)
-    out = (gate * rec_out) @ p["w_out"]
+    out = placed_like((gate * rec_out) @ p["w_out"], x)
     return out, {"conv": new_conv, "h": new_h}
 
 

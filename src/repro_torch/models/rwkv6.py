@@ -15,15 +15,19 @@ layer is ``{"shift_t", "shift_c"}`` ``[B, 1, D]`` in the model dtype and
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.rwkv6_scan import rwkv6_chunked_plain
+from . import sharded as SH
 from .layers import Initializer, Params, group_norm, layer_norm
+from .sharded import placed_like
 
 
 def init_rwkv_block(init: Initializer, n: Optional[int],
@@ -69,7 +73,9 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     """The previous token's activation ([B, T, D] shifted by one)."""
     if prev is None:
         prev = torch.zeros_like(x[:, :1])
-    return torch.cat([prev, x[:, :-1]], dim=1)
+    # a decode state arrives placed by the cache's specs (channels over
+    # the model axis); the dry run's sharded step places it as x
+    return torch.cat([placed_like(prev, x), x[:, :-1]], dim=1)
 
 
 def _ddlerp(p: Params, x: torch.Tensor, xx: torch.Tensor):
@@ -82,7 +88,19 @@ def _ddlerp(p: Params, x: torch.Tensor, xx: torch.Tensor):
     lora = lora.reshape(b, t, 5, ext)
     adj = torch.einsum("btie,ied->btid", lora, p["lora_B"])  # [B,T,5,D]
     mixed = x[:, :, None] + delta[:, :, None] * (p["mu"] + adj)
-    return tuple(mixed[:, :, i] for i in range(5))
+    # each mix feeds a column-parallel projection: on DTensors its
+    # gradient is reduced back to x's layout here (a no-op on plain)
+    return tuple(placed_like(mixed[:, :, i], x) for i in range(5))
+
+
+def _wkv_step(r, k, v, w, s, u):
+    """One decode step of the WKV recurrence in closed form: r, k, v, w
+    [B, H, 1, K], state s [B, H, K, V] -> (o [B, H, 1, V], new state)."""
+    r1, k1 = r[:, :, 0].float(), k[:, :, 0].float()
+    v1, w1 = v[:, :, 0].float(), w[:, :, 0]
+    kv = k1[..., :, None] * v1[..., None, :]
+    o = torch.einsum("bhk,bhkv->bhv", r1, s + u[None, :, :, None] * kv)
+    return o[:, :, None], w1[..., :, None] * s + kv
 
 
 def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -113,21 +131,22 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     w = w.reshape(b, t, h, hd).transpose(1, 2)
     u = p["u"].float()
     if t == 1 and wkv_state is not None:
-        s = wkv_state                                        # [B,H,K,V]
-        r1, k1 = r[:, :, 0].float(), k[:, :, 0].float()
-        v1, w1 = v[:, :, 0].float(), w[:, :, 0]
-        kv = k1[..., :, None] * v1[..., None, :]
-        o = torch.einsum("bhk,bhkv->bhv", r1, s + u[None, :, :, None] * kv)
-        new_state = w1[..., :, None] * s + kv
-        o = o[:, :, None]                                    # [B,H,1,V]
+        fn, xs = _wkv_step, (r, k, v, w, wkv_state)
     elif cfg.rwkv_impl == "chunked":
-        o, new_state = rwkv6_chunked_plain(r, k, v, w, u,
-                                           chunk=cfg.rwkv_chunk)
+        fn, xs = partial(rwkv6_chunked_plain, chunk=cfg.rwkv_chunk), \
+            (r, k, v, w)
     else:
-        o, new_state = ops.rwkv6(r, k, v, w, u, impl=cfg.attention_impl)
+        fn, xs = partial(ops.rwkv6, impl=cfg.attention_impl), (r, k, v, w)
+    if isinstance(r, DTensor):
+        # the recurrence runs on each rank's rows and heads
+        heads = {0: 0, 1: 1}
+        o, new_state = SH.on_shards(fn, xs, (0, 1), (heads, heads),
+                                    extra=(u, {1: 0}))
+    else:
+        o, new_state = fn(*xs, u)
     o = o.transpose(1, 2).reshape(b, t, d).to(x.dtype)
     o = group_norm(o, p["gn_s"], p["gn_b"], h, cfg.norm_eps)
-    out = (o * g.to(o.dtype)) @ p["wo"]
+    out = placed_like((o * g.to(o.dtype)) @ p["wo"], x)
     return out, x[:, -1], new_state
 
 
@@ -138,7 +157,7 @@ def channel_mix(p: Params, x: torch.Tensor, *,
     xr = x + (xx - x) * p["mu_cr"]
     k = torch.square(F.relu(xk @ p["wck"]))
     kv = k @ p["wcv"]
-    out = torch.sigmoid(xr @ p["wcr"]) * kv
+    out = placed_like(torch.sigmoid(xr @ p["wcr"]) * kv, x)
     return out, x[:, -1]
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -36,6 +37,7 @@ from . import layers as L
 from . import moe as M
 from . import rglru as R
 from . import rwkv6 as W
+from . import sharded as SH
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -55,8 +57,18 @@ def _stack(trees) -> Params:
             else torch.stack([t[k] for t in trees]) for k, v in first.items()}
 
 
+def _gather_layer(layer_p: Params, cfg: ModelConfig) -> Params:
+    """With ``cfg.fsdp_per_layer_gather``, one layer's slice of params
+    sharded over the model axis (DTensors) replicated before the layer
+    runs (:func:`~.sharded.gather_layer`); a no-op on plain tensors."""
+    return SH.gather_layer(layer_p) if cfg.fsdp_per_layer_gather \
+        else layer_p
+
+
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
     b, t = tokens.shape
+    if isinstance(tokens, DTensor):
+        return SH.positions_like(tokens)
     return torch.arange(t, device=tokens.device).expand(b, t)
 
 
@@ -212,7 +224,8 @@ class DecoderLM(_LM):
         aux = 0.0
         for i in range(cfg.num_layers):
             x, a = _remat(cfg, decoder_layer_train,
-                          _layer(params["layers"], i), x, cfg, positions)
+                          _gather_layer(_layer(params["layers"], i), cfg), x,
+                          cfg, positions)
             aux = aux + a
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -236,8 +249,9 @@ class DecoderLM(_LM):
         x, positions = self._inputs(params, batch)
         caches = []
         for i in range(cfg.num_layers):
-            x, kv = decoder_layer_prefill(_layer(params["layers"], i), x, cfg,
-                                          positions, cache_len)
+            x, kv = decoder_layer_prefill(
+                _gather_layer(_layer(params["layers"], i), cfg), x, cfg,
+                positions, cache_len)
             caches.append(kv)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = L.unembed(params, x[:, -1:], cfg)[:, 0]
@@ -252,8 +266,9 @@ class DecoderLM(_LM):
         cfg = self.cfg
         x = L.embed(params, tokens, cfg)
         for i in range(cfg.num_layers):
-            x, _ = decoder_layer_decode(_layer(params["layers"], i), x, cfg,
-                                        _layer(cache, i), pos)
+            x, _ = decoder_layer_decode(
+                _gather_layer(_layer(params["layers"], i), cfg), x, cfg,
+                _layer(cache, i), pos)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return L.unembed(params, x, cfg)[:, 0], cache
 
@@ -285,7 +300,8 @@ class DecoderLM(_LM):
         cfg = self.cfg
         x = L.embed(params, tokens, cfg)
         for i in range(cfg.num_layers):
-            x, _ = decoder_layer_paged(_layer(params["layers"], i), x, cfg,
+            x, _ = decoder_layer_paged(_gather_layer(_layer(params["layers"],
+                                                          i), cfg), x, cfg,
                                        pool["k"][i], pool["v"][i],
                                        block_tables, positions,
                                        last_idx=last_idx)

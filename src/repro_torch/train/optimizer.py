@@ -17,9 +17,7 @@ Trees are nested dicts whose leaves are visited in the JAX tree's order,
 sorted keys, so :func:`global_norm` adds the leaves' squares in the same
 order.  :func:`adamw_update` writes the new parameters and moments into
 the given tensors in place, under ``torch.no_grad()`` (the port's stand-in
-for JAX's buffer donation), and returns them.  The ZeRO-1 moment specs
-(JAX ``zero_specs``) are a mesh tool and wait for the port's multi-device
-tooling.
+for JAX's buffer donation), and returns them.
 """
 from __future__ import annotations
 
@@ -172,3 +170,38 @@ def adamw_update(grads, state, params, cfg: OptimizerConfig
     new_state = dict(state)
     new_state["step"] = step
     return params, new_state
+
+
+# -- ZeRO-1 sharding specs --------------------------------------------------------
+
+
+def zero_specs(param_specs, param_shapes, data_axis: str = "data",
+               data_size: int = 1, min_size: int = 2 ** 16):
+    """Moment PartitionSpecs: params' TP specs + data-axis sharding on the
+    largest still-unsharded, divisible dimension (ZeRO-1).
+
+    Small tensors (< min_size elements) stay replicated — sharding them
+    costs more in collective latency than it saves in bytes.
+    """
+    from ..launch.shardings import PartitionSpec as P, tree_map_specs
+
+    def one(spec, shape):
+        dims = tuple(shape.shape if hasattr(shape, "shape") else shape)
+        total = 1
+        for s in dims:
+            total *= s
+        if total < min_size:
+            return spec
+        entries = list(spec) if spec is not None else [None] * len(dims)
+        while len(entries) < len(dims):
+            entries.append(None)
+        # choose the largest unsharded divisible dim
+        best, best_size = None, 0
+        for i, (e, d) in enumerate(zip(entries, dims)):
+            if e is None and d % data_size == 0 and d > best_size:
+                best, best_size = i, d
+        if best is not None:
+            entries[best] = data_axis
+        return P(*entries)
+
+    return tree_map_specs(one, param_specs, param_shapes)

@@ -34,6 +34,7 @@ from ..checkpoint.manager import CheckpointManager
 from ..configs.base import ModelConfig
 from ..core.device import torch_device
 from ..models import get_model
+from ..models.sharded import placed_like
 from . import optimizer as O
 from .fault import PreemptionHandler, StepWatchdog
 
@@ -75,15 +76,17 @@ def loss_and_grads(model, params, batch, grad_accum: int = 1
     k = grad_accum
     if k <= 1:
         return _value_and_grad(model, params, batch)
-    micro = {n: x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
-             for n, x in batch.items()}
+    m = batch[next(iter(batch))].shape[0] // k
     dev = next(O.leaves(params)).device
     loss = torch.zeros((), dtype=torch.float32, device=dev)
-    grads = O.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+    grads = O.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
     for i in range(k):
+        # microbatch i: rows [i * m, (i + 1) * m), as JAX's reshape to
+        # [k, m, ...] cuts them; on DTensors placed as the whole batch
         lv, g = _value_and_grad(model, params,
-                                {n: x[i] for n, x in micro.items()})
+                                {n: placed_like(x[i * m:(i + 1) * m], x)
+                                 for n, x in batch.items()})
         loss = loss + lv
         O.tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, g)
     return loss / k, O.tree_map(lambda g: g / k, grads)
@@ -111,18 +114,17 @@ class Trainer:
     """The JAX ``Trainer``'s constructor and loop, on ``device`` (the card
     unless the caller passes ``device="cpu"``).  ``data`` yields
     ``(batch, cursor)``: a batch of numpy arrays or tensors, moved to the
-    device here.  ``mesh`` must be None: the port has no device mesh yet.
-    With ``donate=False`` each step updates a copy, so tensors the caller
-    took from an earlier step keep their values."""
+    device here.  ``mesh``, a ``DeviceMesh``, is recorded (shape and axis
+    names) in every checkpoint's manifest; as in JAX, the step is not
+    sharded by it.  With ``donate=False`` each step updates a copy, so
+    tensors the caller took from an earlier step keep their values."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: O.OptimizerConfig,
                  train_cfg: TrainConfig, *,
                  data: Iterator[Tuple[Dict[str, Any], int]],
                  mesh=None, donate: bool = True, device="cuda"):
-        if mesh is not None:
-            raise ValueError("the port's Trainer runs on one device; it has "
-                             "no mesh")
         self.cfg = cfg
+        self.mesh = mesh
         self.opt_cfg = opt_cfg
         self.train_cfg = train_cfg
         self.data = data
@@ -162,9 +164,13 @@ class Trainer:
     def _save(self, blocking: bool = False) -> None:
         if self.ckpt is None:
             return
+        mesh_shape = tuple(self.mesh.shape) if self.mesh is not None else ()
+        mesh_axes = tuple(self.mesh.mesh_dim_names) \
+            if self.mesh is not None else ()
         self.ckpt.save(self.step,
                        {"params": self.params, "opt": self.opt_state},
                        data_cursor=self.data_cursor,
+                       mesh_shape=mesh_shape, mesh_axes=mesh_axes,
                        config={"arch": self.cfg.name},
                        blocking=blocking)
 

@@ -412,9 +412,20 @@ def test_donate_false_keeps_earlier_tensors(donate):
     pipe.stop()
     assert not torch.equal(tr.params["final_norm"], saved)
     assert torch.equal(before, saved) is not donate
-    with pytest.raises(ValueError, match="mesh"):
-        Trainer(cfg, OptimizerConfig(), TrainConfig(), data=iter(()),
-                mesh=object(), device="cpu")
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cpu")
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            Trainer(cfg, OptimizerConfig(), TrainConfig(ckpt_dir=td),
+                    data=iter(()), mesh=mesh, device="cpu").run()
+            man = CheckpointManager(td).manifest(0)
+    finally:
+        dist.destroy_process_group()
+    assert tuple(man["mesh_shape"]) == (1, 1)
+    assert tuple(man["mesh_axes"]) == ("data", "model")
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):
