@@ -40,7 +40,13 @@ serving paths at full width, with weights drawn from a seeded
 * the multi-device tooling (``mesh``): the model on DTensors over a (1, 1)
   card mesh, a ``Trainer(mesh=)`` checkpoint restored onto the mesh and
   served on the paged kernels, and two cells of ``launch/dryrun.py`` (256
-  and 512 fake ranks, no card) as subprocesses beside it.
+  and 512 fake ranks, no card) as subprocesses beside it;
+* the schema toolchain (``schema``): ``embedding.bop`` (a 1,536-wide bf16
+  embedding record with an enum) through the port's ``bebopc`` as child
+  processes, its generated module, 65,536 records encoded into one page
+  by the host codecs, and the page's ``[65536, 3093]`` payload decoded on
+  the card by the page decode kernel, bit-equal to the plain version and
+  to the host's zero-copy view.
 
 Each path must launch its kernels (counts set to 0 just before it and
 read just after) and match a replay through the plain versions
@@ -265,6 +271,7 @@ def main(argv=None) -> int:
     Phase("encdec_serve")(lambda: encdec_serve(torch, bd, fa, dev, state))
     Phase("train")(lambda: train(torch, bd, fa, pa, rg, rw, dev, state))
     Phase("mesh")(lambda: mesh(torch, bd, pa, dev, state))
+    Phase("schema")(lambda: schema(torch, bd, dev, state))
     Phase("timing")(lambda: timing(torch, bd, pa, fa, rg, rw, dev, state))
     emit(json.dumps({"kernels": state["kernels"]}))
     emit(json.dumps({"ok": True, "device": {
@@ -3732,6 +3739,199 @@ def _dryrun_finish(proc, cell, tmp):
     return {"cell": list(cell), **{k: rec[k] for k in keys}}
 
 
+# -- the schema toolchain ------------------------------------------------------
+
+#: the survey's headline record: a 1,536-wide bf16 embedding with its id,
+#: model and kind (an enum), compiled from .bop text by the port's bebopc
+EMBEDDING_BOP = '''edition = "2026"
+package smoke
+import "bebop/decorators.bop"
+enum Kind : uint8 { QUERY = 0; DOCUMENT = 1; }
+/// One record of the 1,536-wide embedding workload.
+struct EmbeddingRecord { id: uuid; vector: bfloat16[1536]; model: uint32; kind: Kind; }
+message SearchRequest { query(1): string; top_k(2): uint32; filters(3): map[string, string]; }
+service Search { Embed(SearchRequest): EmbeddingRecord; }
+'''
+EMBEDDING_RECORDS, EMBEDDING_DIM, EMBEDDING_STRIDE = 65536, 1536, 3093
+#: the compiled EmbeddingRecord's decode plan, (offset, count, wire, out)
+#: as ``plan_device_layout`` and ``default_out_dtype`` give it; the schema
+#: phase holds the compiled layout to it, and decode_rows times it (an A/B
+#: against a checkout without the compiler needs the plan as a literal)
+EMBEDDING_PLAN = ((0, 16, "uint8", "uint8"), (16, 1536, "bfloat16", "float32"),
+                  (3088, 1, "uint32", "int32"), (3092, 1, "uint8", "uint8"))
+EMBEDDING_SAMPLES = 256
+
+
+def _bebopc(src, args, cwd):
+    """``python -m repro_torch.core.cli <args>`` as a child process with
+    ``src`` on its path; it must exit 0.  Returns its stdout."""
+    out = subprocess.run([sys.executable, "-m", "repro_torch.core.cli",
+                          *args], cwd=cwd, env=dict(os.environ,
+                                                    PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"bebopc {' '.join(args)} exited "
+                             f"{out.returncode}: {out.stderr[-1500:]}")
+    return out.stdout
+
+
+def _embedding_columns(np, T, n, seed):
+    """``n`` EmbeddingRecords as struct-of-arrays from ``seed``: random
+    uuids, normal vectors rounded to bf16 (as float32), model ids and
+    kinds in {0, 1}."""
+    rng = np.random.default_rng(seed)
+    vec = rng.standard_normal((n, EMBEDDING_DIM), dtype=np.float32)
+    return {"id": np.frombuffer(rng.bytes(16 * n), np.uint8).reshape(n, 16),
+            "vector": T.bf16_array_to_f32(T.f32_array_to_bf16(vec)),
+            "model": rng.integers(0, 2 ** 32, n, dtype=np.uint32),
+            "kind": rng.integers(0, 2, n).astype(np.uint8)}
+
+
+def schema(torch, bd, dev, state):
+    """The Bebop schema toolchain end to end at the survey's 1,536-wide
+    embedding, ending on the card: ``embedding.bop`` checked, its ids
+    listed and built (generated module and descriptor set) by the port's
+    CLI as child processes; the generated module imported; 65,536 records
+    from SEED encoded by ``batch_encode_fixed`` into one page, 256 of its
+    rows held byte for byte to the generated class's ``encode()`` and
+    back through its ``decode()``, one record through the varint baseline;
+    then the page's ``[65536, 3093]`` payload decoded on the card by
+    ``decode_page_device`` in one launch of ``decode_columns`` over the
+    compiled layout's four columns (the enum column among them), held
+    bit-equal to the plain version on a CPU copy and to the host's
+    zero-copy ``batch_decode_fixed`` view."""
+    import importlib
+    import shutil
+    import tempfile
+    import uuid
+
+    import numpy as np
+    from repro_torch.core import fastwire, pages, varint, wire
+    from repro_torch.core import types as T
+    from repro_torch.core.compiler import compile_file
+    from repro_torch.core.descriptor import decode_descriptor_set
+    from repro_torch.core.device import (decode_page_device,
+                                         default_out_dtype,
+                                         plan_device_layout)
+    n = EMBEDDING_RECORDS
+    tmp = tempfile.mkdtemp(prefix="schema_phase_")
+    try:
+        with open(os.path.join(tmp, "embedding.bop"), "w") as f:
+            f.write(EMBEDDING_BOP)
+        t0 = time.perf_counter()
+        check = _bebopc(state["src"], ["check", "embedding.bop"], tmp)
+        ids = _bebopc(state["src"], ["ids", "embedding.bop"], tmp)
+        build = _bebopc(state["src"], [
+            "build", "embedding.bop", "--python-out", "gen",
+            "--descriptor-out", "embedding.bin"], tmp)
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "embedding.bin"), "rb") as f:
+            ds = decode_descriptor_set(f.read())
+        names = [d["name"] for d in ds["schemas"][0]["definitions"]]
+        if sorted(names) != ["EmbeddingRecord", "Kind", "Search",
+                             "SearchRequest"]:
+            raise AssertionError(f"descriptor set names {names}")
+        sys.path.insert(0, os.path.join(tmp, "gen"))
+        try:
+            gen = importlib.import_module("embedding_bebop")
+        finally:
+            sys.path.remove(os.path.join(tmp, "gen"))
+        rec_t = compile_file(os.path.join(tmp, "embedding.bop"))[
+            "EmbeddingRecord"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(f"schema: bebopc ids: {ids.strip()}")
+
+    # the page, built on the host
+    t0 = time.perf_counter()
+    cols = _embedding_columns(np, T, n, SEED + 25)
+    blob = fastwire.batch_encode_fixed(rec_t, cols)
+    page = pages.write_page("EmbeddingRecord", np.frombuffer(
+        blob, np.uint8).reshape(n, -1))
+    payload = pages.read_payload(page, expect_schema="EmbeddingRecord")
+    build_s = time.perf_counter() - t0
+    if payload.shape != (n, EMBEDDING_STRIDE):
+        raise AssertionError(f"payload {payload.shape}")
+    rows = np.random.default_rng(SEED + 26).choice(n, EMBEDDING_SAMPLES,
+                                                   replace=False)
+    for i in rows:
+        value = {"id": uuid.UUID(bytes=cols["id"][i].tobytes()),
+                 "vector": cols["vector"][i], "model": int(cols["model"][i]),
+                 "kind": int(cols["kind"][i])}
+        one = gen.EmbeddingRecord(**value).encode()
+        if one != payload[i].tobytes():
+            raise AssertionError(f"generated encode() differs at row {i}")
+        back = gen.EmbeddingRecord.decode(one)
+        if (bytes(back.id) != value["id"].bytes
+                or not np.array_equal(T.bf16_array_to_f32(back.vector),
+                                      value["vector"])
+                or int(back.model) != value["model"]
+                or int(back.kind) != value["kind"]):
+            raise AssertionError(f"generated decode() differs at row {i}")
+    if wire.encode(rec_t, varint.decode(rec_t, varint.encode(
+            rec_t, value))) != one:
+        raise AssertionError("varint round trip differs")
+    varint_bytes = len(varint.encode(rec_t, value))
+
+    # the card
+    layout = plan_device_layout(rec_t)
+    plan = tuple(c.as_field(default_out_dtype(c.wire_dtype))
+                 for c in layout.columns)
+    if len(layout.columns) != 4 or plan != EMBEDDING_PLAN:
+        raise AssertionError(f"EmbeddingRecord plan {plan}")
+    host = torch.from_numpy(payload.copy())
+    card = host.to(dev)
+    torch.cuda.synchronize()
+    bd.decode_columns.launches = 0
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = decode_page_device(card, layout)
+    e.record()
+    torch.cuda.synchronize()
+    launches = bd.decode_columns.launches
+    if launches != 1:
+        raise AssertionError(f"decode_columns launched {launches} times")
+    plain = decode_page_device(host, layout)
+    # the host's decode: a structured view of the page's own bytes
+    view = fastwire.batch_decode_fixed(rec_t, page, n,
+                                       offset=pages.HEADER_SIZE)
+    if not np.shares_memory(view, np.frombuffer(page, np.uint8)):
+        raise AssertionError("batch_decode_fixed copied the page")
+    max_err = 0.0
+    for c in layout.columns:
+        got = out[c.name].cpu()
+        want = view[c.name].reshape(n, c.count)
+        want = (T.bf16_array_to_f32(want) if c.wire_dtype == "bfloat16"
+                else want.astype(default_out_dtype(c.wire_dtype)))
+        if not torch.equal(_bits(got), _bits(plain[c.name])):
+            raise AssertionError(f"{c.name}: card differs from plain")
+        if got.numpy().tobytes() != np.ascontiguousarray(want).tobytes():
+            raise AssertionError(f"{c.name}: card differs from the host view")
+        max_err = max(max_err, float((got.double() - torch.from_numpy(
+            want).double()).abs().max()))
+    first_ms = s.elapsed_time(e)
+    state["schema_launches"] = launches
+    state["schema_max_abs_err"] = max_err
+    info = {"records": n, "stride": layout.stride,
+            "columns": [[c.name, c.offset, c.count, c.wire_dtype]
+                        for c in layout.columns],
+            "plan": [list(f) for f in plan], "bebopc_check": check.strip(),
+            "bebopc_ids": ids.strip(), "bebopc_build": build.strip(),
+            "bebopc_s": cli_s, "descriptor_definitions": names,
+            "payload_bytes": payload.nbytes, "page_bytes": len(page),
+            "page_build_s": build_s, "rows_checked": EMBEDDING_SAMPLES,
+            "varint_bytes": varint_bytes, "bebop_bytes": len(one),
+            "launches": launches, "bit_equal_plain": True,
+            "bit_equal_host_view": True, "max_abs_err": max_err,
+            "first_call_ms": first_ms}
+    del card, out
+    torch.cuda.empty_cache()
+    emit(f"schema: {n} records, stride {layout.stride}, columns "
+         f"{info['columns']}, first decode {first_ms:.3f} ms on the card")
+    return info
+
+
 # -- timing ------------------------------------------------------------------
 
 
@@ -3829,8 +4029,8 @@ def _wkv_bound(b, h, t, kk, vv, itemsize=2):
 
 
 def decode_rows(torch, bd, dev, gen, flush):
-    """The page decode wrapper at the serve pages' shape and at a bulk
-    page: ``ms`` and ``library_ms`` as every kernel row, ``device_ms`` with
+    """The page decode wrapper at the serve pages' shape, at a bulk page
+    and at the schema phase's compiled EmbeddingRecord page: ``ms`` and ``library_ms`` as every kernel row, ``device_ms`` with
     the host's work hidden behind a spin, ``host_us`` the wrapper's host
     time.  Returns {row: entry}; works with any checkout's ``bd``."""
     def row(fn, plain, nbytes, library=None):
@@ -3898,6 +4098,28 @@ def decode_rows(torch, bd, dev, gen, flush):
             lambda: bd.decode_columns_plain(bulk, DECODE_PLAN),
             65536 * (64 + out_bytes)),
         fields=len(DECODE_PLAN))
+    # row 1e: the compiled EmbeddingRecord page of the schema phase, four
+    # columns over 3,093-byte rows (two rows a staged tile); no one PyTorch
+    # call computes the four columns, so no library time
+    emb = torch.randint(0, 256, (EMBEDDING_RECORDS, EMBEDDING_STRIDE),
+                        generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    out_bytes = sum(c.element_size() * c.shape[1]
+                    for c in bd.decode_columns(emb[:1], EMBEDDING_PLAN))
+    vec = torch.randn((EMBEDDING_RECORDS, EMBEDDING_DIM), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    rows["decode_columns@embedding"] = dict(
+        row(lambda: bd.decode_columns(emb, EMBEDDING_PLAN),
+            lambda: bd.decode_columns_plain(emb, EMBEDDING_PLAN),
+            emb.numel() + EMBEDDING_RECORDS * out_bytes),
+        library_ms=None,
+        # yardstick only, another function: one bf16 -> float32 of the
+        # vectors alone, contiguous
+        bf16_to_float_ms=_cold_ms(torch, lambda: vec.float(), flush),
+        shape=f"page [{EMBEDDING_RECORDS}, {EMBEDDING_STRIDE}] u8 -> id "
+              f"u8 x16, vector bf16 x{EMBEDDING_DIM} -> f32, model u32 -> "
+              f"i32, kind (enum) u8")
+    del emb, vec
     return rows
 
 
@@ -3995,6 +4217,13 @@ def timing(torch, bd, pa, fa, rg, rw, dev, state):
             "launches": launches[f"bebop_decode.{name}"],
             "max_abs_err": state["decode_kernel"]["max_abs_err"],
             **decode.pop(name)})
+    kernels.append({
+        "name": "bebop_decode.decode_columns@embedding", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bebop_decode.cu",
+        "replaces": "src/repro/kernels/bebop_decode.py:110",
+        "launches": state["schema_launches"],
+        "max_abs_err": state["schema_max_abs_err"],
+        **decode.pop("decode_columns@embedding")})
     extra.update({f"bebop_decode.{k}": v for k, v in decode.items()})
     kernels[0]["launches_on_train_path"] = state["train_launches"]
     extra["bebop_decode.decode_columns@train"] = _train_decode_row(

@@ -65,8 +65,16 @@ class DeviceLayout:
     stride: int
     columns: Tuple[ColumnSpec, ...]
 
+    def column(self, name: str) -> ColumnSpec:
+        for c in self.columns:
+            if c.name == name:
+                return c
+        raise KeyError(name)
+
 
 def _field_column(name: str, ft: T.Type, offset: int) -> Optional[ColumnSpec]:
+    if isinstance(ft, T.Enum):
+        ft = ft.base
     if isinstance(ft, T.FixedArray) and isinstance(ft.elem, T.Prim):
         wn = _WIRE_NAMES.get(ft.elem.name)
         if wn is None:
@@ -82,7 +90,8 @@ def _field_column(name: str, ft: T.Type, offset: int) -> Optional[ColumnSpec]:
     return None
 
 
-def plan_device_layout(s: T.Struct) -> DeviceLayout:
+def plan_device_layout(s: T.Struct, *, strict_align: bool = True
+                       ) -> DeviceLayout:
     """Static column plan for a fixed-layout struct."""
     dt = static_dtype(s)
     if dt is None:
@@ -95,13 +104,34 @@ def plan_device_layout(s: T.Struct) -> DeviceLayout:
         size = f.type.static_size()
         col = _field_column(f.name, f.type, offset)
         if col is not None:
-            if col.offset % col.elem_size != 0:
+            if strict_align and col.offset % col.elem_size != 0:
                 raise T.SchemaError(
                     f"{s.name}.{f.name}: offset {col.offset} not aligned to "
-                    f"element size {col.elem_size}; reorder fields")
+                    f"element size {col.elem_size}; reorder fields "
+                    f"(see sort_fields_for_alignment)")
             cols.append(col)
         offset += size
     return DeviceLayout(s.name, dt.itemsize, tuple(cols))
+
+
+def sort_fields_for_alignment(s: T.Struct) -> T.Struct:
+    """Return a new struct with fields sorted by descending alignment —
+    the paper's generated-C layout rule (§4.4.1) applied to the wire schema.
+
+    NOTE: this changes the wire format (structs are positional), so it is a
+    schema-design tool, not a decode-time transformation.
+    """
+    def align_of(ft: T.Type) -> int:
+        if isinstance(ft, T.Enum):
+            ft = ft.base
+        if isinstance(ft, T.FixedArray):
+            return align_of(ft.elem)
+        if isinstance(ft, T.Prim):
+            return min(ft.size, 8) if ft.name not in (
+                "uuid", "int128", "uint128", "timestamp", "duration") else 8
+        return 1
+    fields = sorted(s.fields, key=lambda f: -align_of(f.type))
+    return T.Struct(s.name, fields, mutable=s.mutable, doc=s.doc)
 
 
 def decode_page_device(payload_u8: torch.Tensor, layout: DeviceLayout,

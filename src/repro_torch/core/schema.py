@@ -1,18 +1,32 @@
-"""RPC service definitions: :class:`MethodDef` and :class:`ServiceDef`.
+"""Schema object model: definitions, services, constants, whole-schema container.
 
-Copied from the JAX package's ``core/schema.py``, trimmed to the two
-classes the RPC server, the client and the inference service use (the
-schema container, constants and decorator definitions belong to the
-schema compiler, which the port does not carry).  A method's routing id is
-``method_id(service, method)``, the same 32 bits in both packages.
+`types.py` holds the wire *type* nodes; this module holds everything a `.bop`
+file can declare around them (§5): services with streaming methods and `with`
+composition, typed constants, decorator definitions, packages/imports, and the
+`Schema` container the compiler produces.
+
+Copied from the JAX package's ``core/schema.py``: the RPC
+server, the client and the inference service use :class:`MethodDef` and
+:class:`ServiceDef`; the schema compiler the rest.  A method's routing id
+is ``method_id(service, method)``, the same 32 bits in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from . import types as T
 from .hashing import method_id
+
+# Re-export the DSL surface so users can
+# `from repro_torch.core.schema import *`.
+from .types import (  # noqa: F401
+    Array, BOOL, BYTE, BFLOAT16, Branch, DecoratorUsage, DURATION, Duration,
+    Enum, Field, FixedArray, FLOAT16, FLOAT32, FLOAT64, INT128, INT16, INT32,
+    INT64, INT8, MapT, Message, Prim, STRING, Struct, TIMESTAMP, Timestamp,
+    Type, UINT128, UINT16, UINT32, UINT64, UINT8, UUID, Union, UnionValue,
+    SchemaError,
+)
 
 
 @dataclasses.dataclass
@@ -80,3 +94,91 @@ class ServiceDef:
             if m.name == name:
                 return m
         raise KeyError(name)
+
+
+@dataclasses.dataclass
+class ConstDef:
+    name: str
+    type: T.Type
+    value: object
+    doc: str = ""
+    visibility: str = "export"
+
+
+@dataclasses.dataclass
+class DecoratorParam:
+    name: str
+    type_name: str
+    required: bool
+
+
+@dataclasses.dataclass
+class DecoratorDef:
+    """`#decorator(name) { targets=...; param...; validate [[..]]; export [[..]] }`"""
+
+    name: str
+    targets: List[str]
+    params: List[DecoratorParam]
+    validate_src: Optional[str] = None
+    export_src: Optional[str] = None
+    doc: str = ""
+
+    def param(self, name: str) -> Optional[DecoratorParam]:
+        for p in self.params:
+            if p.name == name:
+                return p
+        return None
+
+
+VALID_TARGETS = {"ENUM", "STRUCT", "MESSAGE", "UNION", "FIELD", "SERVICE",
+                 "METHOD", "BRANCH", "ALL"}
+
+
+class Schema:
+    """Everything one `.bop` compilation produced."""
+
+    def __init__(self, *, package: str = "", edition: str = "2026"):
+        self.package = package
+        self.edition = edition
+        self.definitions: Dict[str, object] = {}   # name -> type/service/const
+        self.order: List[str] = []                 # topological
+        self.decorator_defs: Dict[str, DecoratorDef] = {}
+        self.imports: List[str] = []
+
+    # -- registration ------------------------------------------------------
+    def add(self, defn) -> None:
+        name = defn.name
+        if name in self.definitions:
+            raise T.SchemaError(f"duplicate definition {name}")
+        self.definitions[name] = defn
+        self.order.append(name)
+
+    def add_decorator(self, d: DecoratorDef) -> None:
+        if d.name in self.decorator_defs:
+            raise T.SchemaError(f"duplicate decorator {d.name}")
+        for t in d.targets:
+            if t not in VALID_TARGETS:
+                raise T.SchemaError(f"invalid decorator target {t}")
+        self.decorator_defs[d.name] = d
+
+    # -- lookup ------------------------------------------------------------
+    def __getitem__(self, name: str):
+        return self.definitions[name]
+
+    def get(self, name: str, default=None):
+        return self.definitions.get(name, default)
+
+    def types(self) -> Dict[str, T.Type]:
+        return {k: v for k, v in self.definitions.items()
+                if isinstance(v, T.Type)}
+
+    def services(self) -> Dict[str, ServiceDef]:
+        return {k: v for k, v in self.definitions.items()
+                if isinstance(v, ServiceDef)}
+
+    def constants(self) -> Dict[str, ConstDef]:
+        return {k: v for k, v in self.definitions.items()
+                if isinstance(v, ConstDef)}
+
+    def fqn(self, name: str) -> str:
+        return f"{self.package}.{name}" if self.package else name

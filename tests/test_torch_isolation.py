@@ -3,7 +3,8 @@
 * Every module of ``repro_torch`` imports in a fresh interpreter whose
   import hook refuses ``jax``, ``repro`` and ``ml_dtypes`` (the card's
   machine has no ``ml_dtypes``: the checkpoint format reads bfloat16 as
-  its bits).
+  its bits); the schema toolchain's modules import with ``torch`` refused
+  too.
 * No file of the port (nor ``chip_smoke.py``) names ``jax``, ``repro`` or
   ``ml_dtypes`` in an import statement.
 * Entry points default to the card and raise where CUDA is missing.
@@ -61,6 +62,25 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == f"ok {len(MODULES)}"
+
+
+# the schema toolchain and the host codecs: no device work, so no torch
+TOOLCHAIN = [f"repro_torch.core.{m}" for m in (
+    "schema", "lexer", "parser", "decorators", "compiler", "fastwire",
+    "descriptor", "codegen", "cli", "varint")]
+
+
+def test_schema_toolchain_imports_with_torch_blocked_too():
+    script = _BLOCKING_IMPORT.replace(
+        '("jax", "jaxlib", "repro", "ml_dtypes")',
+        '("jax", "jaxlib", "repro", "ml_dtypes", "torch")')
+    assert script.count('"torch"') == 2
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(PKG))
+    out = subprocess.run([sys.executable, "-c", script, *TOOLCHAIN],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"ok {len(TOOLCHAIN)}"
+    assert set(TOOLCHAIN) <= set(MODULES)
 
 
 def _port_files():
