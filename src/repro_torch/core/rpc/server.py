@@ -1,7 +1,8 @@
 """Server side: integer-dispatch router + frame loop (§7.2).
 
-Copied unchanged from the JAX package's ``core/rpc/server.py``: it is JAX-free
-host code, and both packages must put the same bytes on the wire.
+Copied from the JAX package's ``core/rpc/server.py``: it is JAX-free host
+code, and both packages must put the same bytes on the wire.  The port adds
+its spans (``utils/spans.py``): ``rpc.queued`` and ``rpc.handler``.
 
 The router maps 32-bit method IDs to handlers — integer comparison, no
 string matching.  Reserved IDs implement the framework-level protocols:
@@ -29,6 +30,7 @@ import socket as _socket
 import threading
 from typing import Any, Callable, Dict, List, Optional, Set
 
+from ...utils import spans
 from .. import types as T
 from .. import wire
 from ..schema import ServiceDef
@@ -298,14 +300,24 @@ class Server:
         with self._flight_cv:
             return self._inflight
 
-    def _submit_tracked(self, fn, *args) -> None:
-        """Run a handler on the pool, counted for ``drain()``."""
+    def _submit_tracked(self, fn, *args, method: str = "") -> None:
+        """Run a handler on the pool, counted for ``drain()``.  With spans
+        on, the call gets a request id: its wait for a pool thread is
+        ``rpc.queued``, its run there ``rpc.handler``."""
         with self._flight_cv:
             self._inflight += 1
+        queued = spans.now() if spans.on else 0
 
         def run():
             try:
-                fn(*args)
+                if queued:
+                    rid = spans.new_request()
+                    spans.add("rpc.queued", queued, request=rid,
+                              method=method)
+                    with spans.scope("rpc.handler", rid, method=method):
+                        fn(*args)
+                else:
+                    fn(*args)
             finally:
                 with self._flight_cv:
                     self._inflight -= 1
@@ -411,7 +423,7 @@ class Server:
             if frame.end_stream:
                 sink.push(None)
             self._submit_tracked(self._run_streaming_in, m, sink, ctx, send,
-                                 frame.stream_id)
+                                 frame.stream_id, method=m.name)
             return sink
         if m.kind == "unary":
             key = self._dedup_key(ctx)
@@ -419,15 +431,15 @@ class Server:
                 state, entry = self.dedup.begin(key)
                 if state == "done":
                     self._submit_tracked(self._replay_dedup, entry, send,
-                                         frame.stream_id)
+                                         frame.stream_id, method=m.name)
                     return None
                 if state == "wait":
                     self._submit_tracked(self._join_dedup, entry, send,
-                                         frame.stream_id)
+                                         frame.stream_id, method=m.name)
                     return None
                 send = self._capturing_send(entry, send)
         self._submit_tracked(self._run_single, m, body, ctx, send,
-                             frame.stream_id)
+                             frame.stream_id, method=m.name)
         return None
 
     # -- idempotency (exactly-once unary execution) ---------------------------

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as _cf
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -29,15 +30,23 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..configs.base import ModelConfig
 from ..core.device import torch_device
 from ..models import get_model
+from ..utils import spans
 from .kv_cache import CacheOOM, PagedKVCache, block_keys
 from .sampling import (GREEDY, GenerationParams, SamplingParams,
                        rejection_sample, sample_tokens, spec_uniforms,
                        target_probs)
 from .spec import ngram_propose
+
+try:
+    from torch._C._profiler import _RecordFunctionFast as _FastRange
+except ImportError:     # an older torch: no ranges, spans still work
+    _FastRange = None
+_NO_RANGE = contextlib.nullcontext()
 
 _log = logging.getLogger(__name__)
 
@@ -236,10 +245,97 @@ def _logits_to_host(out: torch.Tensor) -> np.ndarray:
     """Device logits -> host float32 array.  bf16 logits travel as their
     raw 16-bit patterns (half the bytes of a float32 copy) and widen on
     the host, exactly: ``argmax`` sees the same values either way."""
+    return _widen(_fetch_logits(out))
+
+
+def _fetch_logits(out: torch.Tensor) -> np.ndarray:
+    """The copy of :func:`_logits_to_host`: bf16 as int16 bit patterns."""
     if out.dtype == torch.bfloat16:
-        bits = out.contiguous().view(torch.int16).cpu().numpy()
-        return (bits.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+        return out.contiguous().view(torch.int16).cpu().numpy()
     return out.float().cpu().numpy()
+
+
+def _widen(host: np.ndarray) -> np.ndarray:
+    """The widening of :func:`_logits_to_host`: bf16 bits to float32."""
+    if host.dtype == np.int16:
+        return (host.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return host
+
+
+def _profiling() -> bool:
+    """Whether ``torch.profiler`` is running.  The batcher's worker does
+    not see the profiler's thread-local state, so this reads the flag the
+    profiler sets for the whole process."""
+    return _FastRange is not None and getattr(
+        _autograd_profiler, "_is_profiler_enabled", False)
+
+
+def _enter(name: str):
+    """Open a host range of the profiler's, as an operator: the profiler
+    mirrors a ``record_function`` range (a user annotation) onto the
+    device's timeline as if it were device work, and an operator it does
+    not."""
+    r = _FastRange(name)
+    r.__enter__()
+    return r
+
+
+class _StepTrace:
+    """A scheduling step while spans are on or ``torch.profiler`` runs:
+    ``batcher.step``, cut by stamps into ``step.assemble`` (from the
+    step's entry: expiry, SLO, copy-on-write, drafts, host arrays),
+    ``step.launch`` (the arrays to the device and the model's launches),
+    ``step.logits`` (the copy to the host, which waits for the device),
+    ``step.widen`` and ``step.advance`` (pick, emit, ``on_token`` hooks,
+    retire, prefix registration).  With ``ranges`` each is also a host
+    range of the profiler's (:func:`_enter`) of the same name, so its
+    host events name what the host did while the device waited.  As spans, a
+    step that never reached the device, or raised, is not recorded."""
+
+    PHASES = ("step.assemble", "step.launch", "step.logits", "step.widen",
+              "step.advance")
+
+    def __init__(self, ranges: bool):
+        self.stamps = [spans.now()]
+        self.attrs: Optional[dict] = None
+        self.logits_bytes = 0
+        self.ranges: List[Any] = []     # the open ranges, innermost last
+        if ranges:
+            self.ranges = [_enter("batcher.step"), _enter(self.PHASES[0])]
+
+    def mark(self) -> None:
+        self.stamps.append(spans.now())
+        if self.ranges and len(self.stamps) <= len(self.PHASES):
+            self.ranges.pop().__exit__(None, None, None)
+            self.ranges.append(_enter(self.PHASES[len(self.stamps) - 1]))
+
+    def record(self) -> None:
+        if self.attrs is None or not spans.on:
+            return
+        end = spans.now()
+        sid = spans.add("batcher.step", self.stamps[0], end, **self.attrs)
+        for name, a, b in zip(self.PHASES, self.stamps,
+                              self.stamps[1:] + [end]):
+            extra = {"bytes": self.logits_bytes} \
+                if name == "step.logits" else {}
+            spans.add(name, a, b, parent=sid, **extra)
+
+    def close_ranges(self) -> None:
+        while self.ranges:
+            self.ranges.pop().__exit__(None, None, None)
+
+
+def _step_attrs(kind: str, decode_rows: int, prefill_rows: int,
+                pos: np.ndarray, last: np.ndarray) -> dict:
+    """A step's counts: the real query tokens, the query positions it
+    computes (``max_batch`` x width) and the context every row's attention
+    reads.  Idle rows hold position 0 and last index 0."""
+    used = decode_rows + prefill_rows
+    ends = pos[np.arange(pos.shape[0]), last]
+    return {"kind": kind, "decode_rows": decode_rows,
+            "prefill_rows": prefill_rows,
+            "q_tokens": int(last.sum()) + used, "q_positions": int(pos.size),
+            "ctx_tokens": int(ends.sum()) + used}
 
 
 @dataclasses.dataclass(eq=False)   # identity semantics: queues/slot lists
@@ -538,6 +634,7 @@ class _PagedReq:                   # compare [B, T] arrays of mixed shapes
     first_emit_at: Optional[float] = None   # observed TTFT/TPOT inputs
     last_emit_at: Optional[float] = None
     cancelled: bool = False     # caller gone (connection died): stop paying
+    span_request: int = 0       # the submitting thread's span request id
     # runtime state (set at admission)
     tables: Optional[np.ndarray] = None     # [B, M] int32 block tables
     slots: List[int] = dataclasses.field(default_factory=list)
@@ -675,6 +772,7 @@ class PagedBatcher:
                       "cancelled": 0, "forks": 0, "spec_resamples": 0,
                       "sampled_requests": 0}
         self._worker_error_logged = False
+        self._trace: Optional[_StepTrace] = None   # the step, spans on
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="serve-paged-batcher")
         self._worker.start()
@@ -734,7 +832,9 @@ class PagedBatcher:
             p = _PagedReq(tokens, maxn, stop_token, deadline, _cf.Future(),
                           self._next_rid, on_token, priority=pr,
                           ttft_slo_s=ttft, tpot_slo_s=tpot,
-                          sampling=sp, fork_n=n)
+                          sampling=sp, fork_n=n,
+                          span_request=spans.current_request()
+                          if spans.on else 0)
             if p.seq_len == 0:
                 # an installed 0-token request has no prefill to run and no
                 # next_tok to feed: it would poison the SHARED step
@@ -781,7 +881,11 @@ class PagedBatcher:
     # -- worker -------------------------------------------------------------
     def _run(self) -> None:
         while True:
-            with self._cond:
+            # while torch.profiler runs, the wait for work (or for the
+            # queue's lock) is the range batcher.wait
+            prof = _profiling()
+            with _FastRange("batcher.wait") if prof else _NO_RANGE, \
+                    self._cond:
                 while not self._queue and not self._active \
                         and not self._preempted and not self._closed:
                     self._cond.wait()
@@ -790,9 +894,12 @@ class PagedBatcher:
                         self._retire(req, exc=ShedError("batcher closed"))
                     return
             try:
-                self._admit()
-                if self._active:
-                    self._step()
+                if spans.on or prof:
+                    self._traced_pass(prof)
+                else:
+                    self._admit()
+                    if self._active:
+                        self._step()
             except Exception:  # noqa: BLE001 - the worker must survive
                 # per-request failure paths resolve futures themselves;
                 # anything escaping here is counted and the first logged
@@ -880,9 +987,12 @@ class PagedBatcher:
             return per_row + (p.fork_n - 1) * (per_row - shared + 1)
         return per_row * p.rows
 
-    def _admit(self) -> None:
+    def _admit(self) -> int:
+        """Take every queued request that fits; returns how many were
+        installed."""
         if self.swap:
             self._sweep_preempted()
+        installed = 0
         while True:
             req, dense = self._take_admittable()
             if dense is not None:
@@ -891,7 +1001,7 @@ class PagedBatcher:
             if req is None and self.swap:
                 req = self._admit_by_preemption()
             if req is None:
-                return
+                return installed
             if self._active:
                 self.stats["admitted_in_flight"] += 1
             try:
@@ -899,6 +1009,7 @@ class PagedBatcher:
                     self._install(req)
                 else:
                     self._prefill_blocking(req)
+                installed += 1
             except Exception as e:  # noqa: BLE001 - fail THIS request only
                 self._retire(req, exc=e)
 
@@ -1050,8 +1161,13 @@ class PagedBatcher:
     def _install(self, req: _PagedReq) -> None:
         """Give the request blocks + batch slots; with the prefix cache on,
         matched prompt blocks are shared and ``pos_next`` starts at the
-        cache-hit boundary."""
+        cache-hit boundary.  With spans on, its wait since ``submit`` is
+        ``batcher.queued``."""
         rows, t = req.rows, req.seq_len
+        if spans.on:
+            spans.add("batcher.queued", int(req.enqueued_at * 1e9),
+                      request=req.span_request, rows=rows,
+                      prompt_tokens=rows * t)
         total = t + req.max_new_tokens
         limit = None
         row_keys: List[Optional[List[bytes]]] = [None] * rows
@@ -1210,23 +1326,59 @@ class PagedBatcher:
     def _run_step(self, fn, toks, tables, pos, last) -> np.ndarray:
         """Move one step's host arrays to the device, run ``fn`` (the pool
         is updated in place) and bring the logits back to the host."""
+        tr = self._trace
+        if tr is not None:
+            tr.mark()
         dev = self.engine.device
         t, tb, ps, ls = (torch.from_numpy(np.array(a, order="C")).to(dev)
                          for a in (toks, tables, pos, last))
         out, self.cache.pool = fn(self.engine.params, t, self.cache.pool,
                                   tb, ps, ls)
-        return _logits_to_host(out)
+        if tr is not None:
+            tr.mark()
+        host = _fetch_logits(out)
+        if tr is not None:
+            tr.mark()
+            tr.logits_bytes = host.nbytes
+        wide = _widen(host)
+        if tr is not None:
+            tr.mark()
+        return wide
 
-    def _call_step(self, fn, toks, tables, pos, last) -> np.ndarray:
+    def _call_step(self, fn, toks, tables, pos, last, *, kind: str,
+                   decode_rows: int, prefill_rows: int = 0) -> np.ndarray:
         """:meth:`_run_step` for the shared batch: a step that raises fails
         EVERY in-flight request (their blocks return to the pool) and
-        re-raises so the worker loop's error accounting sees it."""
+        re-raises so the worker loop's error accounting sees it.  ``kind``
+        and the rows name the step in its span."""
+        if self._trace is not None:
+            self._trace.attrs = _step_attrs(kind, decode_rows, prefill_rows,
+                                            pos, last)
         try:
             return self._run_step(fn, toks, tables, pos, last)
         except Exception as e:  # noqa: BLE001 - fail every member, survive
             for req in list(self._active):
                 self._retire(req, exc=e)
             raise
+
+    def _traced_pass(self, ranges: bool) -> None:
+        """One pass of the worker loop, :meth:`_admit` and then
+        :meth:`_step`, as ``batcher.admit`` and :class:`_StepTrace`; with
+        ``ranges``, also as the profiler's host ranges."""
+        t0 = spans.now()
+        with _FastRange("batcher.admit") if ranges else _NO_RANGE:
+            installed = self._admit()
+        if spans.on:
+            spans.add("batcher.admit", t0, installed=installed)
+        if not self._active:
+            return
+        self._trace = tr = _StepTrace(ranges)
+        try:
+            self._step()
+            tr.record()
+        finally:
+            self._trace = None
+            tr.close_ranges()
 
     def _step(self) -> None:
         for req in list(self._active):   # evict expired before device work
@@ -1276,6 +1428,7 @@ class PagedBatcher:
         if not prefilling and not decoding:
             return
         n_decode = sum(r.rows for r in decoding)
+        n_pf_rows = sum(r.rows for r in prefilling)
         max_ctx = max([req.pos_next + advances[req.rid]
                        for req in prefilling]
                       + [req.pos_next + 1 for req in decoding])
@@ -1302,7 +1455,9 @@ class PagedBatcher:
             else:
                 toks[i, 0] = req.next_tok[r]
                 pos[i] = req.pos_next     # pads masked via last_idx == 0
-        logits = self._call_step(self._step_fn, toks, tables, pos, last)
+        logits = self._call_step(self._step_fn, toks, tables, pos, last,
+                                 kind="mixed", decode_rows=n_decode,
+                                 prefill_rows=n_pf_rows)
         self.stats["mixed_steps"] += 1
         self.stats["prefill_chunks"] += len(prefilling)
         if decoding:
@@ -1392,7 +1547,8 @@ class PagedBatcher:
             last[i] = k
             tables[i] = req.tables[r][:m_used]
             n_rows += 1
-        logits = self._call_step(self._verify_fn, toks, tables, pos, last)
+        logits = self._call_step(self._verify_fn, toks, tables, pos, last,
+                                 kind="verify", decode_rows=n_rows)
         self.stats["decode_steps"] += 1
         self.stats["spec_steps"] += 1
         self.stats["batched_rows"] += n_rows
@@ -1513,7 +1669,8 @@ class PagedBatcher:
             pos[i] = req.pos_next
             n_rows += 1
         logits = self._call_step(self._step_fn, toks, tables, pos[:, None],
-                                 np.zeros((b,), np.int32))
+                                 np.zeros((b,), np.int32), kind="decode",
+                                 decode_rows=n_rows)
         self.stats["decode_steps"] += 1
         self.stats["batched_rows"] += n_rows
         for req in list(self._active):

@@ -29,6 +29,7 @@ from ..core.device import (DeviceLayout, default_out_dtype,
                            plan_device_layout, torch_device)
 from ..core.hashing import schema_hash
 from ..kernels.bebop_decode import decode_columns
+from ..utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +108,9 @@ class PageIngest:
 
     def admit(self, buf, offset: int = 0, *, deadline=None) -> IngestResult:
         """Validate the page at ``offset``, place it on the device, decode
-        every column."""
+        every column.  With spans on, an admitted page is
+        ``ingest.admit``."""
+        t0 = spans.now() if spans.on else 0
         try:
             header = pages.read_header(buf, offset)
             if deadline is not None and deadline.expired():
@@ -126,6 +129,9 @@ class PageIngest:
         self.stats["records"] += header.record_count
         self.stats["payload_bytes"] += header.record_count \
             * header.record_stride
+        if t0:
+            spans.add("ingest.admit", t0, records=header.record_count,
+                      bytes=header.record_count * header.record_stride)
         return IngestResult(header, plan, columns)
 
     def admit_stream(self, buf, *, cursor: int = 0,

@@ -45,6 +45,7 @@ from ..core import types as T
 from ..core.rpc import (IDEMPOTENCY_KEY, Router, RpcContext, RpcError,
                         Server, Status)
 from ..core.schema import MethodDef, ServiceDef
+from ..utils import spans
 from .engine import ContinuousBatcher, Engine, PagedBatcher, ShedError
 from .ingest import PageIngest
 from .sampling import GenerationParams, SamplingParams
@@ -317,7 +318,11 @@ class InferenceImpl:
             raise RpcError(code, f"bad page: {e}") from e
         # the scheduler plans on the host (prefix hashes, drafts), as the
         # JAX handler's np.asarray does
-        return admitted.columns["tokens"].cpu().numpy()
+        t0 = spans.now() if spans.on else 0
+        tokens = admitted.columns["tokens"].cpu().numpy()
+        if t0:
+            spans.add("ingest.to_host", t0)
+        return tokens
 
     def _await(self, fut: _cf.Future, ctx: RpcContext) -> np.ndarray:
         timeout = None
