@@ -13,9 +13,10 @@ candidates forked over shared prompt blocks, swap preemption with the SLO
 controller, shedding, the dense fallback for requests too large for the
 pool, and stats — is the JAX batcher's, line for line.
 
-Greedy rows of the dense engine take their argmax on the device; sampled
-rows bring their logits to the host, where :mod:`.sampling` filters them
-and walks the CDF, as the reference does.
+Greedy rows of both engines take their argmax on the device and bring
+only the ids to the host; sampled rows bring their logits to the host,
+where :mod:`.sampling` filters them and walks the CDF, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -186,12 +187,11 @@ class Engine:
     @staticmethod
     def _pick(logits: torch.Tensor, sp: SamplingParams,
               index: int) -> np.ndarray:
-        """Next token column [B, 1].  Greedy: the argmax on the device (the
-        first of equal maxima, as ``jnp.argmax``), only [B] ids to the
-        host.  Sampled: the logits come to the host for the seeded
-        sampler."""
+        """Next token column [B, 1].  Greedy: :func:`_greedy_ids` on the
+        device, only [B] ids to the host.  Sampled: the logits come to the
+        host for the seeded sampler."""
         if sp.greedy:
-            return logits.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
+            return _greedy_ids(logits).cpu().numpy()[:, None]
         return sample_tokens(_logits_to_host(logits), sp,
                              index=index)[:, None]
 
@@ -241,6 +241,41 @@ def _config_sampling(sc: ServeConfig) -> SamplingParams:
                           top_p=sc.top_p, seed=sc.seed)
 
 
+def _greedy_ids(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy pick, on the logits' device: the argmax over the last
+    axis as int32, the first of equal maxima (as ``jnp.argmax`` and the
+    host's ``np.argmax`` over the exactly widened values).  ``torch.argmax``
+    documents that order; ``topk`` and ``max(...).indices`` do not."""
+    return logits.argmax(-1).to(torch.int32)
+
+
+class _StepLogits:
+    """A paged step's logits as the host holds them, indexed by step rows
+    like the [B, (C,) V] array they stand for: ``step[req.slots]`` is a
+    request's rows.  ``ids`` is every row's :func:`_greedy_ids` ([B] or
+    [B, C] int32); :meth:`host` gives the float32 logits of the rows that
+    crossed to the host (the sampled requests'), as
+    :func:`_logits_to_host` brings them."""
+
+    def __init__(self, ids: np.ndarray, wide: Optional[np.ndarray],
+                 at: np.ndarray, vocab: int):
+        self.ids = ids
+        self.wide = wide        # [H, (C,) V] float32, or None
+        self.at = at            # each row's index in wide, -1 off the host
+        # the [B, (C,) V] shape of the logits stood for; no step reads it,
+        # perfbench's planted-fault test takes the vocabulary from it
+        self.shape = ids.shape + (vocab,)
+
+    def __getitem__(self, rows) -> "_StepLogits":
+        return _StepLogits(self.ids[rows], self.wide, self.at[rows],
+                           self.shape[-1])
+
+    def host(self) -> np.ndarray:
+        if self.wide is None or (self.at < 0).any():
+            raise ValueError("these rows' logits did not cross to the host")
+        return self.wide[self.at]
+
+
 def _logits_to_host(out: torch.Tensor) -> np.ndarray:
     """Device logits -> host float32 array.  bf16 logits travel as their
     raw 16-bit patterns (half the bytes of a float32 copy) and widen on
@@ -285,9 +320,10 @@ class _StepTrace:
     ``batcher.step``, cut by stamps into ``step.assemble`` (from the
     step's entry: expiry, SLO, copy-on-write, drafts, host arrays),
     ``step.launch`` (the arrays to the device and the model's launches),
-    ``step.logits`` (the copy to the host, which waits for the device),
-    ``step.widen`` and ``step.advance`` (pick, emit, ``on_token`` hooks,
-    retire, prefix registration).  With ``ranges`` each is also a host
+    ``step.logits`` (the copy to the host, which waits for the device:
+    every row's greedy id, and the sampled rows' logits), ``step.widen``
+    (of those logits) and ``step.advance`` (pick, emit, ``on_token``
+    hooks, retire, prefix registration).  With ``ranges`` each is also a host
     range of the profiler's (:func:`_enter`) of the same name, so its
     host events name what the host did while the device waited.  As spans, a
     step that never reached the device, or raised, is not recorded."""
@@ -299,6 +335,7 @@ class _StepTrace:
         self.stamps = [spans.now()]
         self.attrs: Optional[dict] = None
         self.logits_bytes = 0
+        self.host_rows = 0      # rows whose logits crossed to the host
         self.ranges: List[Any] = []     # the open ranges, innermost last
         if ranges:
             self.ranges = [_enter("batcher.step"), _enter(self.PHASES[0])]
@@ -314,9 +351,12 @@ class _StepTrace:
             return
         end = spans.now()
         sid = spans.add("batcher.step", self.stamps[0], end, **self.attrs)
+        used = self.attrs["decode_rows"] + self.attrs["prefill_rows"]
         for name, a, b in zip(self.PHASES, self.stamps,
                               self.stamps[1:] + [end]):
-            extra = {"bytes": self.logits_bytes} \
+            extra = {"bytes": self.logits_bytes,
+                     "device_rows": used - self.host_rows,
+                     "host_rows": self.host_rows} \
                 if name == "step.logits" else {}
             spans.add(name, a, b, parent=sid, **extra)
 
@@ -1240,19 +1280,21 @@ class PagedBatcher:
                                           adv - 1), (rows, c))
             last = np.full((rows,), adv - 1, np.int32)
             logits = self._run_step(self._step_fn, toks, req.tables, pos,
-                                    last)
+                                    last, [] if req.sampling.greedy
+                                    else list(range(rows)))
             self.stats["prefill_chunks"] += 1
             req.pos_next += adv
             self._register_prefix(req)
         self._finish_prefill(req, logits)
 
-    def _finish_prefill(self, req: _PagedReq, logits: np.ndarray) -> None:
+    def _finish_prefill(self, req: _PagedReq, logits: _StepLogits) -> None:
         """Prompt fully written: fork (n>1), pick the first token, retire
         if the request is already done.
 
         ``logits`` holds one row per REAL row (a pending fork's single
         prefill row); the fork broadcasts it to every candidate, which
-        diverge only through their per-candidate draws.
+        diverge only through their per-candidate draws (greedy ones share
+        its id).
         """
         if req.max_new_tokens <= 0 or req.expired():
             self._retire(req)
@@ -1263,7 +1305,7 @@ class PagedBatcher:
             except CacheOOM as e:
                 self._retire(req, exc=e)
                 return
-            logits = np.broadcast_to(logits, (req.rows,) + logits.shape[1:])
+            logits = logits[np.zeros(req.rows, np.intp)]
         req.next_tok = self._next_from(req, logits, 0)
         if req.done is not None:
             req.done |= req.next_tok == req.stop_token
@@ -1303,14 +1345,22 @@ class PagedBatcher:
         req.forked = True
         self.stats["forks"] += n - 1
 
-    def _next_from(self, req: _PagedReq, logits: np.ndarray,
+    def _next_from(self, req: _PagedReq, logits: _StepLogits,
                    index: int) -> np.ndarray:
-        """The token at output position ``index`` for every row: greedy
-        argmax, or a draw through the folded-key schedule (row r of a
-        forked request IS candidate r)."""
+        """The token at output position ``index`` for every row: the
+        greedy id picked on the device, or a draw from the host logits
+        through the folded-key schedule (row r of a forked request IS
+        candidate r)."""
         if req.sampling.greedy:
-            return logits.argmax(-1).astype(np.int32)
-        return sample_tokens(logits, req.sampling, index=index)
+            return logits.ids
+        return sample_tokens(logits.host(), req.sampling, index=index)
+
+    @staticmethod
+    def _sampled_rows(reqs) -> List[int]:
+        """The step rows whose logits the host sampler reads: every real
+        row of the sampled requests among ``reqs``."""
+        return [s for req in reqs if not req.sampling.greedy
+                for s in req.slots[:req.rows]]
 
     # -- scheduling ---------------------------------------------------------
     def _table_width(self, max_ctx: int) -> int:
@@ -1323,39 +1373,54 @@ class PagedBatcher:
             w <<= 1
         return min(w, self.cache.blocks_per_seq)
 
-    def _run_step(self, fn, toks, tables, pos, last) -> np.ndarray:
+    def _run_step(self, fn, toks, tables, pos, last,
+                  host: List[int]) -> _StepLogits:
         """Move one step's host arrays to the device, run ``fn`` (the pool
-        is updated in place) and bring the logits back to the host."""
+        is updated in place), pick every row's greedy id there, and bring
+        to the host the ids and the logits of the rows in ``host`` only.
+        The ids' copy waits for the step; the rows' copy after it finds
+        the device done."""
         tr = self._trace
         if tr is not None:
             tr.mark()
         dev = self.engine.device
         t, tb, ps, ls = (torch.from_numpy(np.array(a, order="C")).to(dev)
                          for a in (toks, tables, pos, last))
+        # the rows' index crosses before the launches: a copy to the card
+        # after them would wait for the step
+        sel = torch.tensor(host, dtype=torch.long).to(dev) if host else None
         out, self.cache.pool = fn(self.engine.params, t, self.cache.pool,
                                   tb, ps, ls)
+        ids = _greedy_ids(out)
+        rows = out[sel] if host else None
         if tr is not None:
             tr.mark()
-        host = _fetch_logits(out)
+        ids = ids.cpu().numpy()
+        got = _fetch_logits(rows) if host else None
         if tr is not None:
             tr.mark()
-            tr.logits_bytes = host.nbytes
-        wide = _widen(host)
+            tr.logits_bytes = ids.nbytes + (got.nbytes if host else 0)
+            tr.host_rows = len(host)
+        wide = _widen(got) if host else None
         if tr is not None:
             tr.mark()
-        return wide
+        at = np.full(out.shape[0], -1, np.intp)
+        at[host] = np.arange(len(host))
+        return _StepLogits(ids, wide, at, out.shape[-1])
 
     def _call_step(self, fn, toks, tables, pos, last, *, kind: str,
-                   decode_rows: int, prefill_rows: int = 0) -> np.ndarray:
+                   decode_rows: int, prefill_rows: int = 0,
+                   host: List[int]) -> _StepLogits:
         """:meth:`_run_step` for the shared batch: a step that raises fails
         EVERY in-flight request (their blocks return to the pool) and
         re-raises so the worker loop's error accounting sees it.  ``kind``
-        and the rows name the step in its span."""
+        and the rows name the step in its span; ``host`` lists the rows
+        whose logits cross to the host."""
         if self._trace is not None:
             self._trace.attrs = _step_attrs(kind, decode_rows, prefill_rows,
                                             pos, last)
         try:
-            return self._run_step(fn, toks, tables, pos, last)
+            return self._run_step(fn, toks, tables, pos, last, host)
         except Exception as e:  # noqa: BLE001 - fail every member, survive
             for req in list(self._active):
                 self._retire(req, exc=e)
@@ -1457,7 +1522,9 @@ class PagedBatcher:
                 pos[i] = req.pos_next     # pads masked via last_idx == 0
         logits = self._call_step(self._step_fn, toks, tables, pos, last,
                                  kind="mixed", decode_rows=n_decode,
-                                 prefill_rows=n_pf_rows)
+                                 prefill_rows=n_pf_rows,
+                                 host=self._sampled_rows(prefilling
+                                                         + decoding))
         self.stats["mixed_steps"] += 1
         self.stats["prefill_chunks"] += len(prefilling)
         if decoding:
@@ -1548,14 +1615,15 @@ class PagedBatcher:
             tables[i] = req.tables[r][:m_used]
             n_rows += 1
         logits = self._call_step(self._verify_fn, toks, tables, pos, last,
-                                 kind="verify", decode_rows=n_rows)
+                                 kind="verify", decode_rows=n_rows,
+                                 host=self._sampled_rows(self._active))
         self.stats["decode_steps"] += 1
         self.stats["spec_steps"] += 1
         self.stats["batched_rows"] += n_rows
         for req in list(self._active):
             self._advance_spec(req, logits, drafts.get(req.rid))
 
-    def _advance_spec(self, req: _PagedReq, logits: np.ndarray,
+    def _advance_spec(self, req: _PagedReq, logits: _StepLogits,
                       draft: Optional[np.ndarray]) -> None:
         """Commit a verify step's result for one request, then apply the
         same max_new_tokens-then-stop-token checks as
@@ -1572,14 +1640,14 @@ class PagedBatcher:
         lx = logits[req.slots]                                  # [R, C, V]
         k = 0 if draft is None else draft.shape[1]
         if req.sampling.greedy:
-            argm = lx.argmax(-1).astype(np.int32)               # [R, C]
+            argm = lx.ids                                       # [R, C]
             n_acc = 0   # lockstep rows: accept the prefix EVERY row accepts
             while n_acc < k \
                     and bool((argm[:, n_acc] == draft[:, n_acc]).all()):
                 n_acc += 1
             seq = [argm[:, j] for j in range(n_acc + 1)]
         else:
-            n_acc, seq = self._rejection_advance(req, lx, draft, k)
+            n_acc, seq = self._rejection_advance(req, lx.host(), draft, k)
         if k:
             self.stats["spec_proposed"] += k * req.rows
             self.stats["spec_accepted"] += n_acc * req.rows
@@ -1670,13 +1738,14 @@ class PagedBatcher:
             n_rows += 1
         logits = self._call_step(self._step_fn, toks, tables, pos[:, None],
                                  np.zeros((b,), np.int32), kind="decode",
-                                 decode_rows=n_rows)
+                                 decode_rows=n_rows,
+                                 host=self._sampled_rows(self._active))
         self.stats["decode_steps"] += 1
         self.stats["batched_rows"] += n_rows
         for req in list(self._active):
             self._advance_decode(req, logits)
 
-    def _advance_decode(self, req: _PagedReq, logits: np.ndarray) -> None:
+    def _advance_decode(self, req: _PagedReq, logits: _StepLogits) -> None:
         """Emit the fed token, pick the next one, retire if done.
 
         Forked requests (``req.done`` set) stop per candidate: a row that

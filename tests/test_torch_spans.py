@@ -213,7 +213,14 @@ def test_every_step_has_one_span_of_each_phase(burst):
         assert used <= a["q_tokens"] <= a["q_positions"]
         assert a["q_positions"] % SC["max_batch"] == 0
         assert a["ctx_tokens"] >= a["q_tokens"]
-        assert phases[2].attrs["bytes"] > 0     # step.logits
+        # step.logits: a greedy burst picks every real row on the card
+        # and brings only the ids across, [max_batch] or a verify step's
+        # [max_batch, C] int32
+        lg = phases[2].attrs
+        assert lg["host_rows"] == 0 and lg["device_rows"] == used
+        width = a["q_positions"] // SC["max_batch"] \
+            if a["kind"] == "verify" else 1
+        assert lg["bytes"] == SC["max_batch"] * width * 4
 
 
 def test_step_spans_add_up_to_the_batchers_counters(burst):
@@ -228,6 +235,13 @@ def test_step_spans_add_up_to_the_batchers_counters(burst):
     assert kinds.count("verify") == delta("spec_steps")
     assert sum(1 for s in steps if s.attrs["decode_rows"]) \
         == delta("decode_steps")
+    # every row a step ran was picked on the card: each decoding row, and
+    # each one-row request's prefill chunk
+    logits = {s.parent: s.attrs for s in got["spans"]
+              if s.name == "step.logits"}
+    assert sum(logits[s.id]["device_rows"] for s in steps) \
+        == delta("batched_rows") + delta("prefill_chunks")
+    assert all(logits[s.id]["host_rows"] == 0 for s in steps)
     admits = [s for s in got["spans"] if s.name == "batcher.admit"]
     assert sum(s.attrs["installed"] for s in admits) == delta("requests")
     pf = [s for s in steps if s.attrs["kind"] == "mixed"]
