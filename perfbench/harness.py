@@ -5,6 +5,8 @@ Everything that belongs to one configuration, traffic mix or metric is a
 file of its own, found by the name ``BENCHMARK.json`` gives it:
 
 * ``configs/<config>.json``: the model configuration as it is run;
+* ``families/<model_type>.py``: the module of the configuration's model
+  family, by its Hugging Face ``model_type`` (:func:`family`);
 * ``traffic/<mix>.json``: the mix's parameters, read by
   :mod:`traffic`; its ``"loop"`` names the module ``loops/<loop>.py``
   that runs the cell (``run``) and drives its load (``drive``);
@@ -72,7 +74,7 @@ def load_data(path: Path) -> dict:
 
 def module_at(kind: str, name: str, root: Path = HERE):
     """``<root>/<kind>/<name>.py`` loaded by path (names hold dots):
-    a metric's reader or a traffic loop."""
+    a metric's reader, a traffic loop or a model family."""
     path = root / kind / f"{name}.py"
     if not path.is_file():
         raise FileNotFoundError(f"no {path} for {kind} {name!r}")
@@ -82,6 +84,17 @@ def module_at(kind: str, name: str, root: Path = HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family(conf: dict, root: Path = HERE):
+    """The model family of a configuration file, ``families/<model_type>.py``:
+    everything the harness does that depends on the model.  It defines
+    ``port_config(conf)``, the port's ``ModelConfig``; ``leaf_specs(cfg)``,
+    the leaves :func:`weights.make` fills; ``readings(params, conf, server,
+    sample, *, control, device)``, the numbers the cell's limits judge,
+    worked out by the family's own plain reference; and ``counts(conf)``,
+    the operations and bytes :mod:`roofline` divides by."""
+    return module_at("families", conf["model_type"], root)
 
 
 def read_per_layer(entries: List[dict], rec: dict,

@@ -20,7 +20,10 @@ import torch
 from . import decoder as D
 
 
-def _inputs(sample: List[dict], device):
+def inputs(sample: List[dict], device):
+    """Each request's whole sequence (prompt and served tokens), the
+    positions whose logits predict the served tokens, and the served
+    tokens."""
     seqs, at, served = [], [], []
     for r in sample:
         p, s = r["prompt"], r["served"]
@@ -98,12 +101,18 @@ def served_gap(params: dict, arch: D.Arch, sample: List[dict], *,
     first at each position of the same prompts and served tokens: the
     control in the program's place, under the same names."""
     D.strict_float32()
-    seqs, at, served = _inputs(sample, device)
+    seqs, at, served = inputs(sample, device)
     groups = dispatch_groups(sample, arch, chunk)
     ref = D.logits_at(params, arch, seqs, at, groups)
     if control:
         served = [x.argmax(-1) for x in
                   D.logits_at(params, arch, seqs, at, groups, quant="fp8")]
+    return gaps(ref, served)
+
+
+def gaps(ref: List[torch.Tensor], served: List[torch.Tensor]) -> dict:
+    """The readings of :func:`served_gap` from the reference's logits at
+    the served positions and the tokens judged there."""
     return {"served_gap": widest_gap(ref, served),
             "served_mismatch": mismatch_share(ref, served),
             "served_mean_gap": mean_gap(ref, served),

@@ -5,6 +5,13 @@ by.  Counts are of what the algorithm needs, from the shapes, with each
 input byte read once and each output byte written once; whatever a kernel
 reads again is its own cost.
 
+What a model needs is counted by its family's ``counts(conf)``
+(:func:`harness.family`), which the run record carries as ``counts``:
+an object with ``weight_bytes()``, ``kv_bytes(ctx)``,
+``decode_token_flops(ctx)``, ``prefill_token_flops()``,
+``decode_attn_bytes(ctx)`` and ``train_step_flops(batch, seq)``; the Qwen2
+decoder's is :class:`Model`.
+
 Peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 989 TFLOP/s in bf16, 3.35 TB/s of HBM.
 """
@@ -124,7 +131,7 @@ def serve_step_mfu(rec) -> float:
     """A serving window's least time on the chip over its wall time, in
     %: the FLOPs of its generated and prefilled tokens, or the bytes of
     its steps' weights and its decoding rows' K/V, whichever bounds."""
-    m = Model(rec["conf"])
+    m = rec["counts"]
     lo, hi = rec["open"], rec["close"]
     flops = nbytes = 0
     prefill = 0
@@ -146,13 +153,14 @@ def serve_step_mfu(rec) -> float:
     steps = max(s1["mixed_steps"] - s0["mixed_steps"],
                 s1["decode_steps"] - s0["decode_steps"])
     nbytes += steps * m.weight_bytes()
-    return 100.0 * bound_s(flops, nbytes, m.dtype) / rec["window_s"]
+    return 100.0 * bound_s(flops, nbytes, rec["conf"]["torch_dtype"]) \
+        / rec["window_s"]
 
 
 def decode_kernel_bytes(rec, start: float, stop: float) -> int:
     """Bytes the plain decode steps stamped in ``[start, stop)`` need
     from the decode kernel (see ``metrics/paged_attn_roofline.tput``)."""
-    m = Model(rec["conf"])
+    m = rec["counts"]
     reqs = rec["server_requests"]
     stamps = sorted((e, k, i) for k, r in enumerate(reqs)
                     for i, e in enumerate(r["emits"]))

@@ -45,32 +45,9 @@ def note(t0: float, what: str) -> None:
 
 
 def model_config(conf: dict):
-    """The port's ``ModelConfig`` for a configuration file: the registry
-    entry named by ``arch`` gives the family and the paths; every size the
-    file states (depth, widths, heads, vocabulary, RoPE base, norm epsilon,
-    dtype, experts and their capacity) is the file's."""
-    from repro_torch.configs import get_config
-    cfg = get_config(conf["arch"])
-    d, h = conf["hidden_size"], conf["num_attention_heads"]
-    sizes = dict(num_layers=conf["num_hidden_layers"], d_model=d,
-                 num_heads=h, num_kv_heads=conf["num_key_value_heads"],
-                 head_dim=d // h, vocab_size=conf["vocab_size"],
-                 tie_embeddings=bool(conf["tie_word_embeddings"]),
-                 qkv_bias=bool(conf["qkv_bias"]),
-                 rope_theta=float(conf["rope_theta"]),
-                 norm_eps=float(conf["rms_norm_eps"]),
-                 dtype=conf["torch_dtype"])
-    if "num_experts" in conf:
-        fe = conf["moe_intermediate_size"]
-        sizes["d_ff"] = fe
-        sizes["moe"] = dataclasses.replace(
-            cfg.moe, num_experts=conf["num_experts"],
-            top_k=conf["num_experts_per_tok"], d_expert=fe,
-            num_shared=conf["shared_expert_intermediate_size"] // fe,
-            capacity_factor=float(conf["capacity_factor"]))
-    else:
-        sizes["d_ff"] = conf["intermediate_size"]
-    return dataclasses.replace(cfg, **sizes)
+    """The port's ``ModelConfig`` for a configuration file, as its model
+    family gives it (:func:`harness.family`)."""
+    return H.family(conf).port_config(conf)
 
 
 class TokenClock:
@@ -178,9 +155,11 @@ class ServeCell:
         from repro_torch.serving.service import InferenceImpl, build_server
         self.bench, self.seed, self.t0 = bench, seed, t0
         self.torch = torch
-        self.cfg = model_config(bench.conf)
+        self.family = H.family(bench.conf, bench.dir)
+        self.cfg = self.family.port_config(bench.conf)
         dtype = getattr(torch, self.cfg.dtype)
-        params = WT.make(self.cfg, seed, device, dtype)
+        params = WT.make(self.cfg, seed, device, dtype,
+                         self.family.leaf_specs(self.cfg))
         self.sync()
         note(t0, "weights made")
         self.engine = Engine(self.cfg, ServeConfig(**bench.mix["server"]),
@@ -266,11 +245,13 @@ def end_to_end(w: Window, reqs: List[dict]) -> Dict[str, float]:
     return out
 
 
-def window_records(bench: H.Bench, w: Window, reqs: List[dict]) -> dict:
-    """What the per-layer metric files read about a serving window."""
+def window_records(bench: H.Bench, w: Window, reqs: List[dict],
+                   family) -> dict:
+    """What the per-layer metric files read about a serving window, with
+    the counts :mod:`roofline` divides by from the model's family."""
     submitted = sum(r["plen"] for rs in w.server.values() for r in rs
                     if w.open_t <= r["submit"] < w.close_t)
-    return {"kind": "serve",
+    return {"kind": "serve", "counts": family.counts(bench.conf),
             "conf": bench.conf, "server": bench.mix["server"],
             "open": w.open_t, "close": w.close_t,
             "window_s": w.close_t - w.open_t,
@@ -288,8 +269,6 @@ def run(bench: H.Bench, seed: int, seconds: float, trace: bool, device,
     same names."""
     import torch
     import tracing
-    from reference import compare as C
-    from reference.decoder import Arch
     mix = bench.mix
     # the client imports while the server builds
     client = ClientProcess(bench, seed, seconds, bench.conf["vocab_size"])
@@ -309,12 +288,13 @@ def run(bench: H.Bench, seed: int, seconds: float, trace: bool, device,
     if code != 0:
         raise RuntimeError(f"load client exited with {code}")
     reqs = merge(w)
-    rec = window_records(bench, w, reqs)
+    rec = window_records(bench, w, reqs, cell.family)
     rec["e2e"] = end_to_end(w, reqs)
     if w.trace is not None:
         rec["trace"] = tracing.reduce(w.trace)
     on_card = cell.engine.device.type == "cuda"
     peak = torch.cuda.max_memory_allocated() if on_card else 0
+    family, cfg = cell.family, cell.cfg
     cell.close()
     del cell
     gc.collect()
@@ -323,12 +303,11 @@ def run(bench: H.Bench, seed: int, seconds: float, trace: bool, device,
         print(f"after the window: {torch.cuda.memory_allocated() / 1e9:.2f}"
               f" GB still allocated", file=sys.stderr)
     note(t0, "window closed, the program's state freed")
-    arch = Arch.from_config(bench.conf)
-    params = WT.make(model_config(bench.conf), seed, device,
-                     getattr(torch, bench.conf["torch_dtype"]))
-    chunk = None if arch.moe_free() else mix["server"]["prefill_chunk"]
-    gap = C.served_gap(params, arch, w.sample, chunk=chunk, control=control,
-                       device=device)
+    params = WT.make(cfg, seed, device,
+                     getattr(torch, bench.conf["torch_dtype"]),
+                     family.leaf_specs(cfg))
+    gap = family.readings(params, bench.conf, mix["server"], w.sample,
+                          control=control, device=device)
     del params
     note(t0, "reference compared")
     return {"setup_s": w.open_t - t0, "rec": rec, "peak": peak,

@@ -2,8 +2,8 @@
 tiny serving cells on the CPU through ``run.execute`` (the look for a card
 skipped), sound; with a step that leaves the K/V pool unchanged; with a
 token altered where the batcher produces it; and with the fp8 control in
-the program's place.  Also a new cell, traffic loop, mix and metric added
-as files only."""
+the program's place.  Also a new cell, traffic loop, mix and metric, and
+a new model family, added as files only."""
 import argparse
 import json
 
@@ -144,5 +144,77 @@ def test_a_new_cell_needs_only_new_files(root):
         assert after == before
     finally:
         for p in new:
+            p.unlink(missing_ok=True)
+        (root / "BENCHMARK.json").write_text(spec_before)
+
+
+PLANTED_FAMILY = '''
+"""The Qwen2 family, judged by a reference whose logit of the first
+served token of the first sampled request lies ``SHIFT`` lower."""
+from pathlib import Path
+
+import harness as H
+from reference import compare as C
+from reference import decoder as D
+
+SHIFT = {shift}
+_QWEN2 = H.module_at("families", "qwen2", Path(__file__).resolve().parents[1])
+port_config = _QWEN2.port_config
+leaf_specs = _QWEN2.leaf_specs
+counts = _QWEN2.counts
+
+
+def readings(params, conf, server, sample, *, control, device):
+    D.strict_float32()
+    seqs, at, served = C.inputs(sample, device)
+    ref = D.logits_at(params, D.Arch.from_config(conf), seqs, at)
+    ref[0][0, served[0][0]] -= SHIFT
+    return C.gaps(ref, served)
+'''
+
+
+def test_a_new_family_needs_only_new_files(root):
+    """A configuration whose ``model_type`` no family of the tree has, its
+    family module and a cell under the closed loop, added as new files
+    and entries: the family's own reference judges the run.  It plants a
+    shift of the reference's logits at one served position, and the run
+    comes out not correct; with the shift at 0 it comes out correct."""
+    pb = root / "perfbench"
+    before = {p: p.read_bytes() for p in pb.rglob("*") if p.is_file()
+              and "__pycache__" not in p.parts}
+    spec_before = (root / "BENCHMARK.json").read_text()
+    conf = json.loads((pb / "configs" / "tiny-dense.json").read_text())
+    conf["model_type"] = "qwen2_planted"
+    family = pb / "families" / "qwen2_planted.py"
+    new = {pb / "configs" / "tiny-planted.json": json.dumps(conf),
+           pb / "limits" / "tiny.planted.json":
+               (pb / "limits" / "tiny.heavy.json").read_text()}
+    try:
+        for p, text in new.items():
+            p.write_text(text)
+        spec = json.loads(spec_before)
+        spec["configs"].append({
+            "name": "tiny-planted", "source": "test",
+            "file": "perfbench/configs/tiny-planted.json", "reduced": [],
+            "why": "test"})
+        spec["workloads"].append({
+            "name": "tiny.planted", "config": "tiny-planted",
+            "traffic": "tiny-heavy", "chips": 1, "why": "test"})
+        for m in spec["end_to_end"]:
+            if m["name"] == "serve_tokens_per_s":
+                m["workloads"].append("tiny.planted")
+        (root / "BENCHMARK.json").write_text(json.dumps(spec))
+        # the two texts differ in length, so no stale bytecode is loaded
+        family.write_text(PLANTED_FAMILY.format(shift="100.0"))
+        res, out = _run(root, "tiny.planted")
+        assert res["failed"] == 0 and res["attempted"] > 0
+        assert not res["correct"] and out["readings"]["served_gap"] > 50
+        family.write_text(PLANTED_FAMILY.format(shift="0.0"))
+        res, out = _run(root, "tiny.planted")
+        assert res["correct"] and out["readings"]["served_gap"] <= 1e-3
+        after = {p: p.read_bytes() for p in before}
+        assert after == before
+    finally:
+        for p in [*new, family]:
             p.unlink(missing_ok=True)
         (root / "BENCHMARK.json").write_text(spec_before)

@@ -1,6 +1,7 @@
 """Every cell's files are found by name, and BENCHMARK.json keeps the
-benchmark's contract: names, units, bounds, paths and the per-layer
-metrics' readers."""
+benchmark's contract: names, units, bounds, paths, the per-layer metrics'
+readers and each configuration's model family."""
+import dataclasses
 import json
 import re
 from pathlib import Path
@@ -75,6 +76,34 @@ def test_every_traffic_and_config_file_is_used():
         conf = json.loads((ROOT / c["file"]).read_text())
         assert conf["reduced"] == c["reduced"]
         assert conf["source"].startswith(c["source"])
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+def test_config_family_gives_the_ports_tree(config):
+    """The configuration's family file defines the four functions, and at
+    a tiny size its ``leaf_specs`` names the keys, shapes and dtypes of the
+    port's own parameter tree."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import get_model
+    entry = next(c for c in SPEC["configs"] if c["name"] == config)
+    conf = json.loads((ROOT / entry["file"]).read_text())
+    fam = H.family(conf)
+    for fn in ("port_config", "leaf_specs", "readings", "counts"):
+        assert callable(getattr(fam, fn, None)), fn
+    cfg = dataclasses.replace(reduced_config(fam.port_config(conf)),
+                              dtype="bfloat16")
+    kinds = {"model": torch.bfloat16, "float32": torch.float32}
+    specs = {path: (tuple(shape), kinds[kind])
+             for path, shape, kind, _ in fam.leaf_specs(cfg)}
+
+    def leaves(tree, pre=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, pre + (k,))
+            else:
+                yield pre + (k,), (tuple(v.shape), v.dtype)
+    assert specs == dict(leaves(get_model(cfg).init(0, torch.device("cpu"))))
 
 
 def test_load_json_names_the_missing_file(tmp_path):

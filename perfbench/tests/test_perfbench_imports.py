@@ -32,6 +32,7 @@ def test_the_run_path_loads_no_jax():
     tops = _loaded("import run, serving, tracing, client, sweep, harness\n"
                    "harness.module_at('loops', 'sessions')\n"
                    "harness.module_at('loops', 'closed')\n"
+                   "harness.family({'model_type': 'qwen2_moe'})\n"
                    "import repro_torch.serving\n"
                    "from reference import compare")
     assert "repro_torch" in tops

@@ -20,14 +20,17 @@ tied qwen2-1.5b repeats its input token at 98% of positions, by a median
 top-2 margin of 1.77 logits that no rounding moves, and a router of
 ``N(0, 1 / d)`` picks its top 4 of 60 experts by near-ties.
 
-The tree is the one ``DecoderLM.init`` builds: the same keys, shapes and
-dtypes (the MoE router float32, everything else the model's dtype).
+Which leaves there are, with their shapes, dtypes and inits, is the
+model family's ``leaf_specs`` (:func:`harness.family`): the tree the
+port's own ``init`` builds, the same keys, shapes and dtypes.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+import harness as H
 
 CHUNK = 1 << 28     # elements filled by one generator call
 RESIDUAL_GAIN = 4.0
@@ -39,49 +42,9 @@ Spec = Tuple[Tuple[str, ...], Tuple[int, ...], str, Tuple[str, float]]
 
 
 def leaf_specs(cfg) -> List[Spec]:
-    """Every leaf of a dense or MoE ``DecoderLM``'s parameter tree."""
-    d, n, v = cfg.d_model, cfg.num_layers, cfg.vocab_size
-    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    out: List[Spec] = [(("embed",), (v, d), "model", ("normal", 0.02))]
-    if not cfg.tie_embeddings:
-        out.append((("lm_head",), (d, v), "model", ("dense", d)))
-    lay = ("layers",)
-    out += [(lay + ("ln1",), (n, d), "model", ("scale", 0.0)),
-            (lay + ("ln2",), (n, d), "model", ("scale", 0.0)),
-            (lay + ("attn", "wq"), (n, d, q), "model", ("dense", d)),
-            (lay + ("attn", "wk"), (n, d, kv), "model", ("dense", d)),
-            (lay + ("attn", "wv"), (n, d, kv), "model", ("dense", d)),
-            (lay + ("attn", "wo"), (n, q, d), "model",
-             ("wide", (q, RESIDUAL_GAIN)))]
-    if cfg.qkv_bias:
-        out += [(lay + ("attn", "bq"), (n, q), "model", ("normal", 0.02)),
-                (lay + ("attn", "bk"), (n, kv), "model", ("normal", 0.02)),
-                (lay + ("attn", "bv"), (n, kv), "model", ("normal", 0.02))]
-    if cfg.moe is None:
-        f = cfg.d_ff
-        out += [(lay + ("mlp", "w_gate"), (n, d, f), "model", ("dense", d)),
-                (lay + ("mlp", "w_up"), (n, d, f), "model", ("dense", d)),
-                (lay + ("mlp", "w_down"), (n, f, d), "model",
-                 ("wide", (f, RESIDUAL_GAIN)))]
-    else:
-        m = cfg.moe
-        e, fe = m.num_experts, m.d_expert
-        moe = lay + ("moe",)
-        out += [(moe + ("router",), (n, d, e), "float32",
-                 ("wide", (d, ROUTER_GAIN))),
-                (moe + ("w_gate",), (n, e, d, fe), "model", ("dense", d)),
-                (moe + ("w_up",), (n, e, d, fe), "model", ("dense", d)),
-                (moe + ("w_down",), (n, e, fe, d), "model",
-                 ("wide", (fe, RESIDUAL_GAIN)))]
-        if m.num_shared:
-            fs = fe * m.num_shared
-            sh = moe + ("shared",)
-            out += [(sh + ("w_gate",), (n, d, fs), "model", ("dense", d)),
-                    (sh + ("w_up",), (n, d, fs), "model", ("dense", d)),
-                    (sh + ("w_down",), (n, fs, d), "model",
-                     ("wide", (fs, RESIDUAL_GAIN)))]
-    out.append((("final_norm",), (d,), "model", ("scale", 0.0)))
-    return out
+    """Every leaf of a dense or MoE Qwen2 ``DecoderLM``'s parameter tree
+    (:mod:`families.qwen2`)."""
+    return H.module_at("families", "qwen2").leaf_specs(cfg)
 
 
 def _numel(shape) -> int:
@@ -91,9 +54,13 @@ def _numel(shape) -> int:
     return k
 
 
-def make(cfg, seed: int, device, model_dtype: torch.dtype) -> Dict:
-    """The parameter tree for ``cfg`` from ``seed`` on ``device``."""
-    specs = leaf_specs(cfg)
+def make(cfg, seed: int, device, model_dtype: torch.dtype,
+         specs: Optional[List[Spec]] = None) -> Dict:
+    """The parameter tree for ``cfg`` from ``seed`` on ``device``: the
+    leaves ``specs`` names, its family's ``leaf_specs(cfg)`` (by default
+    the Qwen2 decoder's)."""
+    if specs is None:
+        specs = leaf_specs(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
     dtypes = {"model": model_dtype, "float32": torch.float32}
